@@ -3,26 +3,53 @@
 
 Phases, each of which raises on failure:
   1. the card's name and power limit, as nvidia-smi reports them;
-  2. build the CUDA kernel from stan_tpu_torch/csrc (nvcc), print the build
-     time and the assembler's register report;
-  3. the kernel against its plain PyTorch version on the card, on the 70^3
-     beam's tables and on a small odd grid, with the x-face flags (1,1),
-     (0,1), (1,0), (0,0), in float32 and float64;
-  4. time per sweep of the kernel and of the plain version at
-     [3, 72, 72, 72];
-  5. the main path: solve_linear_statics(hex_beam(70, 70, 70),
+  2. build every CUDA kernel from stan_tpu_torch/csrc (one nvcc per source,
+     started together), print the build time and the assembler's register
+     reports;
+  3. stencil_sweep against its plain PyTorch version on the card, on the
+     70^3 beam's tables and on a small odd grid, with the x-face flags
+     (1,1), (0,1), (1,0), (0,0), in float32 and float64;
+  4. theta_sweep (one grid) against its plain version on the same two grids
+     and on the 32^3 calibration grid (the shape its main path runs), with
+     two coefficient pairs, one of them the 32^3 calibration's (λ, μ) at
+     θ_true, and theta_sweep_batched at [16, 3, 35, 35, 35] (16 chains
+     of the 32^3 grid, 16 distinct pairs) and on the small odd grid; all
+     four flag pairs, float32 and float64, random ghosts;
+  5. time per launch of each kernel and of its plain version, in turns, at
+     the main paths' shapes: [3, 73, 73, 73] (the 70^3 grid) for
+     stencil_sweep and theta_sweep, [16, 3, 35, 35, 35] for
+     theta_sweep_batched;
+  6. the linear main path: solve_linear_statics(hex_beam(70, 70, 70),
      device="cuda") in float32 with float64 certification (1,073,733 DOF):
      operator "stencil", converged, certified residual <= 1e-6, and at
      least one kernel launch per CG iteration;
-  6. an independent check of the answer: the float64 residual with the
+  7. an independent check of that answer: the float64 residual with the
      structured operator (which does not use the kernel), and the support
      reactions balancing the loads;
-  7. the cost of the CG loop's per-iteration host sync.
+  8. the cost of the CG loop's per-iteration host sync;
+  9. the calibration main path, bench.py's 32^3 calibration (107,811 DOF):
+     observations from the port's own forward at θ_true (theta_sweep),
+     make_problem(device="cuda", float32, cg_tol=1e-6), then run_hmc with
+     16 chains and 8 leapfrog steps (theta_sweep_batched): finite samples,
+     acceptance above 0, at least one batched launch per iteration of the
+     chain-batched CG loops, no unconverged forward solve at θ_true;
+ 10. the gradient of the calibration's log posterior on the card in float64
+     against central finite differences, at one θ (log E, ν and load).
+
+Two measurements run only when asked for:
+  --profile  one 16-chain gradient of the 32^3 posterior near θ_true under
+             torch.profiler: wall time, chain-batched CG iterations, ms per
+             iteration, device busy share, device time by kernel, launches
+             per iteration;
+  --cli      `python -m stan_tpu_torch.cli calibrate --synthetic --sampler
+             hmc --device cuda` on an STdb of the 32^3 beam (needs
+             protobuf), at the CLI's default tolerance and at 1e-8 (a
+             short run), printing the CLI's counts of unconverged solves.
 
 Prints a JSON line of kernel facts and, last, one JSON line naming the
 device. Exits non-zero, with no result, when there is no CUDA device.
 
-Run from the repository root: python3 chip_smoke.py
+Run from the repository root: python3 chip_smoke.py [--profile] [--cli]
 """
 
 from __future__ import annotations
@@ -36,11 +63,19 @@ import numpy as np
 import torch
 
 N = 70  # bench.py's beam: 343,000 HEX8 elements, 1,073,733 DOF
+G = 32  # bench.py's calibration grid: 35,937 nodes, 107,811 DOF
+CHAINS = 16
+N_LEAPFROG = 8
+N_WARMUP = 10
+N_SAMPLES = 5
+THETA_TRUE = np.array([np.log(190000.0), 0.28, 0.0])
 SEED = 0
 # The kernel and the plain version sum the same products in other orders.
 SWEEP_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 FLAGS = ((1, 1), (0, 1), (1, 0), (0, 0))
 SYNC_ITERS = 200
+# tests/test_infer.py:227-236 (test_forward_gradient_finite_difference).
+FD_H, FD_REL, FD_ABS = 1e-4, 2e-3, 1e-3
 
 
 def require(cond, msg: str) -> None:
@@ -71,10 +106,31 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def in_turns(kern, plain, kreps=200, preps=20):
+    """(kernel ms, plain ms, readings) timed plain, kernel, kernel, plain."""
+    p1 = time_ms(plain, preps)
+    k1 = time_ms(kern, kreps)
+    k2 = time_ms(kern, kreps)
+    p2 = time_ms(plain, preps)
+    return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2, p1, p2)
+
+
+def check_close(f, f_ref, dtype, label, card) -> float:
+    torch.cuda.synchronize()
+    err = float((f - f_ref).abs().max())
+    scale = float(f_ref.abs().max())
+    require(bool(torch.isfinite(f).all()), f"{label}: non-finite")
+    require(err <= SWEEP_RTOL[dtype] * scale,
+            f"{label}: max error {err} > {SWEEP_RTOL[dtype]} x {scale}")
+    print(f"[{card}] {label}: max|f-f_ref| = {err:.3e} "
+          f"(max|f_ref| = {scale:.3e})")
+    return err
+
+
 def compare_sweeps(tables, node_shape, rng, label, card) -> dict:
-    """Kernel vs plain version on random slabs (ghosts random too, as a
-    slab's x ghosts carry a neighbour's plane); returns {(dtype, flags):
-    max abs error}."""
+    """stencil_sweep vs its plain version on random slabs (ghosts random
+    too, as a slab's x ghosts carry a neighbour's plane); returns {(dtype,
+    flags): max abs error}."""
     from stan_tpu_torch.fem import stencil
 
     errs = {}
@@ -85,16 +141,53 @@ def compare_sweeps(tables, node_shape, rng, label, card) -> dict:
         for lo, hi in FLAGS:
             f = stencil.stencil_sweep(up, table, lo, hi)
             f_ref = stencil.stencil_sweep_reference(up, table, lo, hi)
-            torch.cuda.synchronize()
-            err = float((f - f_ref).abs().max())
-            scale = float(f_ref.abs().max())
-            require(bool(torch.isfinite(f).all()), f"{label}: non-finite")
-            require(err <= SWEEP_RTOL[dtype] * scale,
-                    f"{label} {dtype} flags ({lo},{hi}): max error {err} > "
-                    f"{SWEEP_RTOL[dtype]} x {scale}")
+            errs[(dtype, (lo, hi))] = check_close(
+                f, f_ref, dtype,
+                f"sweep {label} {str(dtype)[6:]} flags ({lo},{hi})", card)
+    return errs
+
+
+def unit_tables(model):
+    """The unit-λ and unit-μ signature tables of a structured beam."""
+    from stan_tpu_torch.fem import stencil, structured
+
+    base = structured.build_structured_operator(model, dtype=torch.float64,
+                                                device="cuda")
+    return (stencil.signature_tables(base.ke_lam.cpu().numpy()),
+            stencil.signature_tables(base.ke_mu.cpu().numpy()),
+            base.node_shape)
+
+
+def compare_theta(model, coefs, rng, label, card, batched: bool) -> dict:
+    """theta_sweep (coefs [P, 2]: one check per pair) or theta_sweep_batched
+    (coefs [B, 2]: one batch) against theta_sweep_reference; returns
+    {(dtype, flags): max abs error over the checks}."""
+    from stan_tpu_torch.fem import stencil
+
+    tl, tm, node_shape = unit_tables(model)
+    padded = tuple(n + 2 for n in node_shape)
+    errs = {}
+    for dtype in (torch.float32, torch.float64):
+        t2 = stencil.pack_theta_tables(tl, tm, dtype, "cuda")
+        coef = torch.as_tensor(coefs, dtype=dtype, device="cuda")
+        B = coef.shape[0]
+        up = torch.as_tensor(rng.standard_normal((B, 3) + padded),
+                             dtype=dtype, device="cuda")
+        for lo, hi in FLAGS:
+            name = f"{str(dtype)[6:]} flags ({lo},{hi})"
+            if batched:
+                err = check_close(
+                    stencil.theta_sweep_batched(up, t2, coef, lo, hi),
+                    stencil.theta_sweep_reference(up, t2, coef, lo, hi),
+                    dtype, f"theta_sweep_batched {label} {name}", card)
+            else:
+                err = max(check_close(
+                    stencil.theta_sweep(up[b], t2, coef[b], lo, hi),
+                    stencil.theta_sweep_reference(up[b:b + 1], t2,
+                                                  coef[b:b + 1], lo, hi)[0],
+                    dtype, f"theta_sweep {label} {name} coef {b}", card)
+                    for b in range(B))
             errs[(dtype, (lo, hi))] = err
-            print(f"[{card}] sweep {label} {str(dtype)[6:]} flags ({lo},{hi}):"
-                  f" max|f-f_ref| = {err:.3e} (max|f_ref| = {scale:.3e})")
     return errs
 
 
@@ -128,7 +221,139 @@ def wall(fn) -> float:
     return time.perf_counter() - t0
 
 
+def reset_launches():
+    from stan_tpu_torch.fem import stencil
+
+    stencil.launches = 0
+    stencil.theta_launches = 0
+    stencil.theta_batched_launches = 0
+
+
+def calibration_observations(model, card):
+    """bench.py's synthetic observations (bench.py:284-313), made with the
+    port's own forward at θ_true: 128 strongly deflected nodes x 3
+    directions, 1% noise. Returns (obs_nodes, obs_dirs, y, sigma, stats of
+    the θ_true solve)."""
+    from stan_tpu_torch.infer import forward
+
+    fwd = forward.build_forward(model, device="cuda", cg_tol=1e-6)
+    u_true = forward.displacement_fn(fwd, model.nelem)(
+        torch.as_tensor(THETA_TRUE, device="cuda")).detach().cpu().numpy()
+    stats = fwd.stats.as_dict()
+    print(f"[{card}] forward at θ_true: {stats}")
+    total = np.linalg.norm(u_true, axis=1)
+    nodes = np.nonzero(total > 0.3 * total.max())[0][:128]
+    obs_nodes = np.repeat(nodes, 3)
+    obs_dirs = np.tile([0, 1, 2], len(nodes))
+    rng = np.random.default_rng(0)
+    sigma = 1e-2 * float(np.abs(u_true).max())
+    y = u_true[obs_nodes, obs_dirs] + sigma * rng.normal(size=len(obs_nodes))
+    return obs_nodes, obs_dirs, y, sigma, stats
+
+
+def fd_gradient_check(model, obs, card) -> None:
+    """The log posterior's gradient (forward + adjoint solve on the kernel,
+    float64) against central differences, at one θ with the load free."""
+    from stan_tpu_torch.infer import calibrate
+
+    obs_nodes, obs_dirs, y, sigma = obs
+    prob = calibrate.make_problem(model, obs_nodes, obs_dirs, y, sigma,
+                                  dtype=torch.float64, device="cuda",
+                                  cg_tol=1e-12, infer_load=True)
+    theta = torch.tensor([[np.log(200000.0), 0.1, 0.05]], dtype=torch.float64,
+                         device="cuda", requires_grad=True)
+    prob.log_posterior(theta).sum().backward()
+    g = theta.grad[0].cpu().numpy()
+    with torch.no_grad():
+        for i, name in enumerate(("log E", "logit 2ν", "log s")):
+            e = torch.zeros_like(theta)
+            e[0, i] = FD_H
+            fd = float(prob.log_posterior(theta + e)
+                       - prob.log_posterior(theta - e)) / (2 * FD_H)
+            print(f"[{card}] float64 gradient d/d({name}): autograd "
+                  f"{g[i]:.9e}, central difference {fd:.9e}")
+            require(abs(g[i] - fd) <= max(FD_REL * abs(fd), FD_ABS),
+                    f"gradient {name}: {g[i]} vs finite difference {fd}")
+    st = prob.fwd.stats.as_dict()
+    require(st["forward_unconverged"] == st["adjoint_unconverged"] == 0,
+            f"float64 solves of the gradient check unconverged: {st}")
+
+
+def profile_gradient(prob, card, top: int = 10) -> None:
+    """One 16-chain gradient near θ_true: its wall time unprofiled, then the
+    device time of the same gradient under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from stan_tpu_torch.infer import hmc
+
+    lgb = hmc.guarded_logp_grad_b(prob.log_posterior)
+    near = np.array([THETA_TRUE[0], np.log(0.56 / 0.44), 0.0])
+    theta = torch.as_tensor(
+        near + 0.01 * np.random.default_rng(3).normal(size=(CHAINS, 3)),
+        device="cuda")
+    lgb(theta)
+    st0 = prob.fwd.stats.as_dict()
+    wall_s = wall(lambda: lgb(theta))
+    st1 = prob.fwd.stats.as_dict()
+    loop = sum(st1[k] - st0[k]
+               for k in ("forward_loop_iters", "adjoint_loop_iters"))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lgb(theta)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in dev)
+    launches = sum(e.count for e in dev)
+    print(f"[{card}] profile, one gradient near θ_true ({CHAINS} chains): "
+          f"{wall_s:.4f} s unprofiled, {loop} batched CG iterations "
+          f"({st1['forward_iters'] - st0['forward_iters']} forward + "
+          f"{st1['adjoint_iters'] - st0['adjoint_iters']} adjoint over the "
+          f"chains), {wall_s / loop * 1e3:.4f} ms per iteration; device busy "
+          f"{busy_us / 1e6:.4f} s, busy share {busy_us / 1e6 / wall_s:.3f}; "
+          f"{launches} device events, {launches / loop:.1f} per iteration")
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"[{card}]   {e.self_device_time_total / busy_us:6.1%} "
+              f"{e.count:7d} x {e.self_device_time_total / e.count:8.2f} us  "
+              f"{e.key[:90]}")
+
+
+def cli_calibration(card) -> None:
+    """The calibrate command on an STdb of the 32^3 beam, at the CLI's
+    default tolerance and (shorter: 1 warmup transition, 4 draws, the
+    fewest its split R-hat takes) at 1e-8; it prints its own counts of
+    unconverged solves."""
+    import tempfile
+
+    from stan_tpu.core import meshgen
+    from stan_tpu.io import stdb
+    from stan_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/beam{G}.STdb"
+        stdb.write(meshgen.hex_beam(G, G, G), path)
+        for extra, n_warmup, n_samples in (([], N_WARMUP, N_SAMPLES),
+                                           (["--cg-tol", "1e-8"], 1, 4)):
+            argv = ["calibrate", path, "--synthetic", "--sampler", "hmc",
+                    "--chains", str(CHAINS), "--warmup", str(n_warmup),
+                    "--samples", str(n_samples), "--device", "cuda", *extra]
+            print(f"[{card}] python -m stan_tpu_torch.cli {' '.join(argv)}")
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            print(f"[{card}] cli calibrate: exit code {rc}, "
+                  f"{time.perf_counter() - t0:.2f} s")
+            require(rc == 0, f"cli calibrate {extra}: exit code {rc}")
+
+
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="profile one calibration gradient")
+    parser.add_argument("--cli", action="store_true",
+                        help="run the calibrate command on the 32^3 beam")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
@@ -136,6 +361,7 @@ def main() -> int:
     from stan_tpu_torch import _build
     from stan_tpu_torch.analysis.linear import solve_linear_statics
     from stan_tpu_torch.fem import stencil, structured
+    from stan_tpu_torch.infer import calibrate, forward, hmc
     from stan_tpu_torch.solvers import cg
     from stan_tpu_torch.utils.timing import PhaseTimer
 
@@ -145,13 +371,15 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    lib_path = _build.build()
-    _build.library()
+    libs = _build.build()
+    for name in libs:
+        _build.library(name)
     print(f"[{card}] kernel build + load: {time.perf_counter() - t0:.2f} s "
-          f"({lib_path.name})")
-    print(lib_path.with_suffix(".log").read_text().strip())
+          f"({', '.join(p.name for p in libs.values())})")
+    for path in libs.values():
+        print(path.with_suffix(".log").read_text().strip())
 
-    # -- kernel vs plain version ------------------------------------------
+    # -- kernels vs plain versions ----------------------------------------
     rng = np.random.default_rng(SEED)
     model = meshgen.hex_beam(N, N, N)
     op32 = stencil.build_stencil_operator(model, dtype=torch.float32,
@@ -165,28 +393,68 @@ def main() -> int:
     compare_sweeps(op_small.tables, op_small.node_shape, rng,
                    "5x4x3 (lx=6, ly=1.5, lz=3)", card)
 
-    # -- time per sweep at the main path's shape, in turns ----------------
+    lam_true, mu_true = forward.lame_from_E_nu(np.exp(THETA_TRUE[0]),
+                                               THETA_TRUE[1])
+    pairs = np.array([[lam_true, mu_true], [1.3e5, 6.1e4]])
+    compare_theta(model, pairs, rng, f"{N}^3", card, False)
+    cal_model = meshgen.hex_beam(G, G, G)
+    # The calibration path runs theta_sweep on the 32^3 grid (B = 1): the
+    # kernels line reports this check.
+    theta_errs = compare_theta(cal_model, pairs, rng, f"{G}^3", card, False)
+    compare_theta(small, pairs, rng, "5x4x3", card, False)
+    chain_pairs = np.stack(forward.lame_from_E_nu(
+        np.exp(THETA_TRUE[0] + 0.1 * rng.standard_normal(CHAINS)),
+        0.28 + 0.05 * rng.standard_normal(CHAINS)), axis=1)
+    batched_errs = compare_theta(cal_model, chain_pairs, rng,
+                                 f"[{CHAINS},3,{G + 3},{G + 3},{G + 3}]",
+                                 card, True)
+    compare_theta(small, chain_pairs[:3], rng, "5x4x3", card, True)
+
+    # -- time per launch at the main paths' shapes, in turns --------------
     times = {}
+    tl70, tm70, shape70 = unit_tables(model)
+    tl32, tm32, shape32 = unit_tables(cal_model)
     for dtype in (torch.float32, torch.float64):
         table = stencil.pack_tables(op32.tables, dtype, "cuda")
         up = torch.as_tensor(
             rng.standard_normal((3, *(n + 2 for n in op32.node_shape))),
             dtype=dtype, device="cuda")
-        kern = lambda: stencil.stencil_sweep(up, table, 1, 1)  # noqa: E731
-        plain = lambda: stencil.stencil_sweep_reference(  # noqa: E731
-            up, table, 1, 1)
-        p1 = time_ms(plain, 20)
-        k1 = time_ms(kern, 200)
-        k2 = time_ms(kern, 200)
-        p2 = time_ms(plain, 20)
-        times[dtype] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"[{card}] sweep [3,72,72,72] {str(dtype)[6:]}: kernel "
-              f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
+        k, p, r = in_turns(lambda: stencil.stencil_sweep(up, table, 1, 1),
+                           lambda: stencil.stencil_sweep_reference(
+                               up, table, 1, 1))
+        times[("stencil_sweep", dtype)] = (k, p)
+        print(f"[{card}] stencil_sweep {list(up.shape)} {str(dtype)[6:]}: "
+              f"kernel {r[0]:.4f} / {r[1]:.4f} ms, plain {r[2]:.4f} / "
+              f"{r[3]:.4f} ms")
 
-    # -- the main path ----------------------------------------------------
+        t2 = stencil.pack_theta_tables(tl70, tm70, dtype, "cuda")
+        coef = torch.as_tensor(pairs[0], dtype=dtype, device="cuda")
+        k, p, r = in_turns(
+            lambda: stencil.theta_sweep(up, t2, coef, 1, 1),
+            lambda: stencil.theta_sweep_reference(up[None], t2, coef[None],
+                                                  1, 1))
+        times[("theta_sweep", dtype)] = (k, p)
+        print(f"[{card}] theta_sweep {list(up.shape)} {str(dtype)[6:]}: "
+              f"kernel {r[0]:.4f} / {r[1]:.4f} ms, plain {r[2]:.4f} / "
+              f"{r[3]:.4f} ms")
+
+        t2 = stencil.pack_theta_tables(tl32, tm32, dtype, "cuda")
+        coef_b = torch.as_tensor(chain_pairs, dtype=dtype, device="cuda")
+        up_b = torch.as_tensor(rng.standard_normal(
+            (CHAINS, 3) + tuple(n + 2 for n in shape32)), dtype=dtype,
+            device="cuda")
+        k, p, r = in_turns(
+            lambda: stencil.theta_sweep_batched(up_b, t2, coef_b, 1, 1),
+            lambda: stencil.theta_sweep_reference(up_b, t2, coef_b, 1, 1))
+        times[("theta_sweep_batched", dtype)] = (k, p)
+        print(f"[{card}] theta_sweep_batched {list(up_b.shape)} "
+              f"{str(dtype)[6:]}: kernel {r[0]:.4f} / {r[1]:.4f} ms, plain "
+              f"{r[2]:.4f} / {r[3]:.4f} ms")
+
+    # -- the linear main path ---------------------------------------------
     model = meshgen.hex_beam(N, N, N)
     timer = PhaseTimer(verbose=False)
-    stencil.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     res = solve_linear_statics(model, device="cuda", timer=timer)
     torch.cuda.synchronize()
@@ -257,17 +525,89 @@ def main() -> int:
           f"{per_s:.4f} ms with the per-iteration sync, {per_n:.4f} ms "
           f"without; sync cost {per_s - per_n:.4f} ms/iteration")
 
-    ms, plain_ms = times[torch.float32]
+    # -- the calibration main path ----------------------------------------
+    cal_model = meshgen.hex_beam(G, G, G)
+    reset_launches()
+    t0 = time.perf_counter()
+    obs_nodes, obs_dirs, y, sigma, true_stats = calibration_observations(
+        cal_model, card)
+    prob = calibrate.make_problem(cal_model, obs_nodes, obs_dirs, y, sigma,
+                                  device="cuda", cg_tol=1e-6)
+    init = np.random.default_rng(7)
+    theta0 = torch.as_tensor(
+        np.array([np.log(210000.0), 0.0, 0.0])[None]
+        + 0.05 * init.normal(size=(CHAINS, 3)), device="cuda")
+    out = hmc.run_hmc(prob.log_posterior, theta0, 11, n_samples=N_SAMPLES,
+                      n_warmup=N_WARMUP, n_leapfrog=N_LEAPFROG,
+                      init_step=0.02, solve_stats=prob.fwd.stats)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    theta_launches = stencil.theta_launches
+    batched_launches = stencil.theta_batched_launches
+    st = out.solve_stats
+    run_s = out.warmup_seconds + sum(out.chunk_seconds)
+    sps = CHAINS * sum(out.chunk_sizes) / sum(out.chunk_seconds)
+    loop_iters = st["forward_loop_iters"] + st["adjoint_loop_iters"]
+    print(f"[{card}] calibration {G}^3 ({3 * cal_model.nnode} DOF, "
+          f"{len(y)} observations), {CHAINS} chains, {N_LEAPFROG} leapfrog "
+          f"steps, {N_WARMUP} warmup + {N_SAMPLES} samples: {cal_s:.2f} s "
+          f"in all, warmup {out.warmup_seconds:.2f} s, sampling "
+          f"{sum(out.chunk_seconds):.2f} s")
+    print(f"[{card}] samples/s (sampling phase, all chains): {sps:.3f}; "
+          f"acceptance {float(np.mean(out.accept_rate)):.3f} "
+          f"(per chain {np.round(out.accept_rate, 3).tolist()}); step size "
+          f"{float(np.mean(out.step_size)):.4g}")
+    print(f"[{card}] gradient evaluations (all {CHAINS} chains each): "
+          f"{out.grad_evals}, {run_s / out.grad_evals:.4f} s each (HMC run "
+          f"time / evaluations)")
+    print(f"[{card}] CG iterations per forward solve "
+          f"{st['forward_iters'] / st['forward_solves']:.1f}, per adjoint "
+          f"solve {st['adjoint_iters'] / st['adjoint_solves']:.1f}; batched "
+          f"loop iterations {st['forward_loop_iters']} forward + "
+          f"{st['adjoint_loop_iters']} adjoint; unconverged solves: "
+          f"{out.unconverged_forward} forward, {out.unconverged_adjoint} "
+          f"adjoint (of {st['forward_solves']} each)")
+    print(f"[{card}] kernel launches on the calibration path: theta_sweep "
+          f"{theta_launches}, theta_sweep_batched {batched_launches}")
+    cons = calibrate.CalibrationProblem.constrain(out.samples)
+    print(f"[{card}] posterior draws: E mean {cons[..., 0].mean():.6g}, "
+          f"nu mean {cons[..., 1].mean():.4f} (truth 190000, 0.28)")
+    require(out.samples.shape == (CHAINS, N_SAMPLES, 3)
+            and np.isfinite(out.samples).all(), "samples not finite")
+    require(float(np.mean(out.accept_rate)) > 0.0, "acceptance rate 0")
+    require(batched_launches >= loop_iters,
+            f"{batched_launches} batched launches < {loop_iters} iterations "
+            f"of the chain-batched CG loops")
+    require(true_stats["forward_unconverged"] == 0,
+            "the forward solve at θ_true did not converge")
+    require(theta_launches >= true_stats["forward_loop_iters"],
+            f"{theta_launches} theta_sweep launches < "
+            f"{true_stats['forward_loop_iters']} iterations at θ_true")
+
+    fd_gradient_check(cal_model, (obs_nodes, obs_dirs, y, sigma), card)
+    if args.profile:
+        profile_gradient(prob, card)
+    if args.cli:
+        cli_calibration(card)
+
+    rows = (
+        ("stencil_sweep", "stan_tpu_torch/csrc/stencil_sweep.cu",
+         "stan_tpu/fem/stencil.py:218", launches, errs),
+        ("theta_sweep", "stan_tpu_torch/csrc/theta_sweep.cu",
+         "stan_tpu/fem/stencil.py:570", theta_launches, theta_errs),
+        ("theta_sweep_batched", "stan_tpu_torch/csrc/theta_sweep.cu",
+         "stan_tpu/fem/stencil.py:610", batched_launches, batched_errs),
+    )
     print(json.dumps({"kernels": [{
-        "name": "stencil_sweep",
+        "name": name,
         "route": "cuda",
-        "source": "stan_tpu_torch/csrc/stencil_sweep.cu",
-        "replaces": "stan_tpu/fem/stencil.py:218",
-        "launches": launches,
-        "max_abs_err": errs[(torch.float32, (1, 1))],
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+        "source": source,
+        "replaces": replaces,
+        "launches": n,
+        "max_abs_err": err[(torch.float32, (1, 1))],
+        "ms": times[(name, torch.float32)][0],
+        "plain_ms": times[(name, torch.float32)][1],
+    } for name, source, replaces, n, err in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,11 +1,13 @@
 """Build the port's CUDA sources with nvcc at first use and bind them with ctypes.
 
 The kernels have a plain C interface (``csrc/*.cu``), so one ``nvcc`` call
-builds a shared library in seconds; nothing includes PyTorch's headers.
-The library goes into ``stan_tpu_torch/_build/`` (listed in .gitignore),
-named by a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is. Pointers and the stream are passed
-as ``ctypes.c_void_p`` from ``tensor.data_ptr()`` and
+builds a shared library from a source in seconds; nothing includes
+PyTorch's headers. Every source becomes its own library, and the ``nvcc``
+calls for all of them start together. A library goes into
+``stan_tpu_torch/_build/`` (listed in .gitignore), named by a hash of its
+source and the flags, so an edited source is rebuilt and an unchanged one
+is loaded as it is. Pointers and the stream are passed as
+``ctypes.c_void_p`` from ``tensor.data_ptr()`` and
 ``torch.cuda.current_stream().cuda_stream``.
 
 Nothing here runs at import: the CPU tests import every module of the port
@@ -21,14 +23,40 @@ import pathlib
 import subprocess
 
 _PKG = pathlib.Path(__file__).resolve().parent
-SOURCE = _PKG / "csrc" / "stencil_sweep.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # sm_90a (not sm_90): the Hopper-only instructions exist only for that
 # target. -Xptxas -v writes registers, shared memory and spills to the log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lib = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The C entry points of each source and their argument types.
+_ENTRIES = {
+    "stencil_sweep": {
+        # up, table, out, SX, NNY, NNZ, is_low, is_high, stream
+        "stencil_sweep_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "stencil_sweep_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
+    "theta_sweep": {
+        # up, tables, coef, out, B, SX, NNY, NNZ, is_low, is_high, stream
+        "theta_sweep_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "theta_sweep_f64": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
+}
+
+_libs: dict = {}
+
+
+def sources() -> list:
+    """Every CUDA source of the port, sorted by name."""
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path(source: pathlib.Path) -> pathlib.Path:
+    """Where the library for this exact source and flag set lives."""
+    key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}-{key.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:
@@ -40,43 +68,54 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build() -> pathlib.Path:
-    """Compile csrc/stencil_sweep.cu unless the library for this exact
-    source and flag set exists; return the library's path. The compiler's
-    output is kept beside it, with the suffix ``.log``."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"{SOURCE.stem}-{key.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent process sees all or nothing
-    return lib
+def build() -> dict:
+    """Compile every csrc/*.cu whose library is missing, one nvcc per
+    source, all started together, and wait for all of them; return
+    {source stem: library path}. Each compiler's output is kept beside its
+    library, with the suffix ``.log``. Raises if any build failed."""
+    libs = {src.stem: (src, library_path(src)) for src in sources()}
+    todo = [(src, lib) for src, lib in libs.values() if not lib.exists()]
+    if todo:
+        BUILD_DIR.mkdir(exist_ok=True)
+        nvcc = _nvcc()
+        running = []
+        for src, lib in todo:
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            running.append((src, lib, tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for src, lib, tmp, proc in running:
+            out, _ = proc.communicate()
+            lib.with_suffix(".log").write_text(out)
+            if proc.returncode != 0:
+                failed.append(f"{src.name}: nvcc exit code {proc.returncode}"
+                              f"\n{out}")
+            else:
+                os.replace(tmp, lib)  # atomic: others see all or nothing
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return {stem: lib for stem, (_, lib) in libs.items()}
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on the first call."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.stencil_sweep_f32, lib.stencil_sweep_f64):
-            fn.argtypes = [p, p, p, i, i, i, i, i, p]
-            fn.restype = i
-        lib.stencil_sweep_error_string.argtypes = [i]
-        lib.stencil_sweep_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu; the first call builds every
+    source that needs it."""
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build()[name]))
+        for fn_name, argtypes in _ENTRIES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = _I
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [_I]
+        err.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return _libs[name]
 
 
-def check(code: int, what: str) -> None:
-    """Raise if a C entry returned a CUDA error code."""
+def check(code: int, what: str, name: str) -> None:
+    """Raise if a C entry of csrc/<name>.cu returned a CUDA error code."""
     if code != 0:
-        msg = library().stencil_sweep_error_string(code).decode()
+        msg = getattr(library(name), f"{name}_error_string")(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

@@ -13,8 +13,10 @@ import torch
 
 from stan_tpu_torch.fem.operator import (StiffnessOperator, node_incidence,
                                          resolve_device)
-from stan_tpu_torch.fem.stencil import StencilOperator, pack_tables
+from stan_tpu_torch.fem.stencil import (StencilOperator, pack_tables,
+                                        pack_theta_tables)
 from stan_tpu_torch.fem.structured import StructuredOperator
+from stan_tpu_torch.infer.forward import StencilForwardProblem
 
 
 def _float(a, dtype, device) -> torch.Tensor:
@@ -69,3 +71,22 @@ def stencil_operator_from_numpy(base: StructuredOperator, tables: dict
     device."""
     return StencilOperator(base=base, tables=tables,
                            table=pack_tables(tables, base.dtype, base.device))
+
+
+def stencil_forward_from_numpy(free_mask, d_lam, d_mu, f0, tables_lam,
+                               tables_mu, node_shape, cg_tol, cg_maxiter, *,
+                               device="cuda", dtype=None
+                               ) -> StencilForwardProblem:
+    """StencilForwardProblem from stan_tpu.infer.forward.
+    StencilForwardProblem's fields: the four grids as numpy arrays and the
+    unit-λ / unit-μ tables as {sig: {offset: 3x3 float64}}
+    (stan_tpu.fem.stencil._thaw_tables of ft_lam / ft_mu)."""
+    dev = resolve_device(device)
+    grids = [_float(a, dtype, dev).contiguous()
+             for a in (free_mask, d_lam, d_mu, f0)]
+    return StencilForwardProblem(
+        tables_lam=tables_lam, tables_mu=tables_mu,
+        tables2=pack_theta_tables(tables_lam, tables_mu, grids[3].dtype, dev),
+        free_mask=grids[0], d_lam=grids[1], d_mu=grids[2], f0=grids[3],
+        node_shape=tuple(int(n) for n in node_shape), cg_tol=float(cg_tol),
+        cg_maxiter=int(cg_maxiter))

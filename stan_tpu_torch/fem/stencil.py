@@ -18,6 +18,13 @@ same contract.
 The x-axis L/H rows depend on the global position of the slab, so the
 sweep takes two flags (this slab owns the global low / high x face), as the
 TPU kernel does; the single-device path passes (1, 1).
+
+The calibration's forward model needs K(θ)·u = λ·K_λu + μ·K_μu with the
+unit-λ and unit-μ tables fixed and (λ, μ) changing at run time, per chain.
+theta_sweep (one grid) and theta_sweep_batched (a [B, ...] batch of chains,
+one launch) compute it in one pass, on the kernel of csrc/theta_sweep.cu,
+with the coefficients read from device memory; theta_sweep_reference is
+their plain version. ThetaSweep makes the sweep differentiable in (λ, μ, u).
 """
 
 from __future__ import annotations
@@ -44,8 +51,11 @@ _ALLOWED = {"F": (0, 1), "L": (0,), "H": (1,)}
 _SIGS = tuple(itertools.product("FLH", repeat=3))
 _INTERIOR = ("F", "F", "F")
 
-# Kernel launches of stencil_sweep on CUDA tensors since the last reset.
+# Kernel launches on CUDA tensors since the last reset, one count per
+# kernel wrapper: stencil_sweep, theta_sweep, theta_sweep_batched.
 launches = 0
+theta_launches = 0
+theta_batched_launches = 0
 
 
 def signature_tables(ke: np.ndarray) -> dict:
@@ -176,7 +186,7 @@ def stencil_sweep(up: torch.Tensor, table: torch.Tensor, is_low,
     _, SXp, NNYp, NNZp = up.shape
     out = torch.empty((3, SXp - 2, NNYp - 2, NNZp - 2), dtype=up.dtype,
                       device=up.device)
-    lib = _build.library()
+    lib = _build.library("stencil_sweep")
     fn = (lib.stencil_sweep_f32 if up.dtype == torch.float32
           else lib.stencil_sweep_f64)
     with torch.cuda.device(up.device):
@@ -186,10 +196,195 @@ def stencil_sweep(up: torch.Tensor, table: torch.Tensor, is_low,
                   ctypes.c_void_p(out.data_ptr()), SXp - 2, NNYp - 2,
                   NNZp - 2, int(bool(is_low)), int(bool(is_high)),
                   ctypes.c_void_p(stream))
-    _build.check(code, "stencil_sweep launch")
+    _build.check(code, "stencil_sweep launch", "stencil_sweep")
     global launches
     launches += 1
     return out
+
+
+def pack_theta_tables(tables_lam: dict, tables_mu: dict, dtype, device
+                      ) -> torch.Tensor:
+    """The unit-λ and unit-μ signature tables packed side by side as
+    [2, 27, 27, 3, 3] (pack_tables layout): the theta sweeps' table input."""
+    return torch.stack([pack_tables(tables_lam, dtype, device),
+                        pack_tables(tables_mu, dtype, device)])
+
+
+def theta_sweep_reference(up_b: torch.Tensor, tables2: torch.Tensor,
+                          coef: torch.Tensor, is_low, is_high
+                          ) -> torch.Tensor:
+    """Plain PyTorch version of theta_sweep_batched, same contract.
+
+    Combines the two table sets per chain (coef[b, 0]·T_λ + coef[b, 1]·T_μ,
+    as the kernel forms each coefficient), then for each signature region
+    contracts that signature's table with the region's 3x3x3 neighbour
+    windows (an unfold view of up_b, window index = offset + 1 per axis),
+    all chains in one einsum.
+    """
+    B, _, SXp, NNYp, NNZp = up_b.shape
+    SX, NNY, NNZ = SXp - 2, NNYp - 2, NNZp - 2
+    tab = torch.einsum("bt,tsocd->bsocd", coef, tables2).reshape(
+        B, 27, 3, 3, 3, 3, 3)  # [B, sig, ox, oy, oz, c, d]
+    win = up_b.unfold(2, 3, 1).unfold(3, 3, 1).unfold(4, 3, 1)
+    out = up_b.new_empty((B, 3, SX, NNY, NNZ))
+    xr = _axis_regions(SX, bool(is_low), bool(is_high))
+    yr = _axis_regions(NNY, True, True)
+    zr = _axis_regions(NNZ, True, True)
+    for s, (sx, sy, sz) in enumerate(_SIGS):
+        (x0, x1), (y0, y1), (z0, z1) = xr[sx], yr[sy], zr[sz]
+        if x1 <= x0 or y1 <= y0 or z1 <= z0:
+            continue
+        out[:, :, x0:x1, y0:y1, z0:z1] = torch.einsum(
+            "bpqrcd,bdxyzpqr->bcxyz", tab[:, s],
+            win[:, :, x0:x1, y0:y1, z0:z1])
+    return out
+
+
+def _check_theta(name, up_b, tables2, coef) -> None:
+    """Refuse what the theta kernel does not take (up_b is 5-D here)."""
+    B = up_b.shape[0]
+    if up_b.shape[1] != 3 or min(up_b.shape[2:]) < 3:
+        raise ValueError(f"{name}: up must be [3, SX+2, NNY+2, NNZ+2] per "
+                         f"chain with SX, NNY, NNZ >= 1, got "
+                         f"{tuple(up_b.shape)}")
+    if not 1 <= B <= 65535:
+        raise ValueError(f"{name}: 1 <= chains <= 65535, got {B}")
+    if tuple(tables2.shape) != (2, 27, 27, 3, 3):
+        raise ValueError(f"{name}: tables must be [2, 27, 27, 3, 3], got "
+                         f"{tuple(tables2.shape)}")
+    if tuple(coef.shape) != (B, 2):
+        raise ValueError(f"{name}: coef must be [{B}, 2] (or [2] for one "
+                         f"grid), got {tuple(coef.shape)}")
+    if (up_b.dtype not in (torch.float32, torch.float64)
+            or tables2.dtype != up_b.dtype or coef.dtype != up_b.dtype):
+        raise TypeError(f"{name}: up, tables and coef must share float32 or "
+                        f"float64, got {up_b.dtype}, {tables2.dtype}, "
+                        f"{coef.dtype}")
+    if tables2.device != up_b.device or coef.device != up_b.device:
+        raise ValueError(f"{name}: up, tables and coef are on different "
+                         f"devices")
+    if not (up_b.is_contiguous() and tables2.is_contiguous()
+            and coef.is_contiguous()):
+        raise ValueError(f"{name}: up, tables and coef must be contiguous")
+
+
+def _launch_theta(up_b, tables2, coef, is_low, is_high) -> torch.Tensor:
+    B, _, SXp, NNYp, NNZp = up_b.shape
+    out = torch.empty((B, 3, SXp - 2, NNYp - 2, NNZp - 2), dtype=up_b.dtype,
+                      device=up_b.device)
+    lib = _build.library("theta_sweep")
+    fn = (lib.theta_sweep_f32 if up_b.dtype == torch.float32
+          else lib.theta_sweep_f64)
+    with torch.cuda.device(up_b.device):
+        stream = torch.cuda.current_stream(up_b.device).cuda_stream
+        code = fn(ctypes.c_void_p(up_b.data_ptr()),
+                  ctypes.c_void_p(tables2.data_ptr()),
+                  ctypes.c_void_p(coef.data_ptr()),
+                  ctypes.c_void_p(out.data_ptr()), B, SXp - 2, NNYp - 2,
+                  NNZp - 2, int(bool(is_low)), int(bool(is_high)),
+                  ctypes.c_void_p(stream))
+    _build.check(code, "theta_sweep launch", "theta_sweep")
+    return out
+
+
+def theta_sweep(up: torch.Tensor, tables2: torch.Tensor, coef: torch.Tensor,
+                is_low, is_high) -> torch.Tensor:
+    """coef[0]·K_λu + coef[1]·K_μu over one ghost-padded slab.
+
+    up: [3, SX+2, NNY+2, NNZ+2] (the stencil_sweep contract); tables2:
+    pack_theta_tables output in up's dtype; coef: [2] tensor on up's
+    device (never read on the host). Returns [3, SX, NNY, NNZ].
+
+    A CPU tensor takes theta_sweep_reference. A CUDA tensor launches the
+    kernel of csrc/theta_sweep.cu with one chain, or raises.
+    """
+    if up.dim() != 4 or coef.dim() != 1:
+        raise ValueError(f"theta_sweep: up must be 4-D and coef [2], got "
+                         f"{tuple(up.shape)} and {tuple(coef.shape)}")
+    if up.device.type == "cpu":
+        return theta_sweep_reference(up[None], tables2, coef[None], is_low,
+                                     is_high)[0]
+    if up.device.type != "cuda":
+        raise ValueError(f"theta_sweep: unsupported device {up.device}")
+    _check_theta("theta_sweep", up[None], tables2, coef[None])
+    out = _launch_theta(up[None], tables2, coef[None], is_low, is_high)[0]
+    global theta_launches
+    theta_launches += 1
+    return out
+
+
+def theta_sweep_batched(up_b: torch.Tensor, tables2: torch.Tensor,
+                        coef: torch.Tensor, is_low, is_high) -> torch.Tensor:
+    """coef[b, 0]·K_λu_b + coef[b, 1]·K_μu_b for a batch of B chains in one
+    launch.
+
+    up_b: [B, 3, SX+2, NNY+2, NNZ+2]; coef: [B, 2] tensor on up_b's device.
+    Returns [B, 3, SX, NNY, NNZ]. A CPU tensor takes theta_sweep_reference;
+    a CUDA tensor launches the kernel of csrc/theta_sweep.cu, or raises.
+    """
+    if up_b.dim() != 5 or coef.dim() != 2:
+        raise ValueError(f"theta_sweep_batched: up must be 5-D and coef "
+                         f"[B, 2], got {tuple(up_b.shape)} and "
+                         f"{tuple(coef.shape)}")
+    if up_b.device.type == "cpu":
+        return theta_sweep_reference(up_b, tables2, coef, is_low, is_high)
+    if up_b.device.type != "cuda":
+        raise ValueError(f"theta_sweep_batched: unsupported device "
+                         f"{up_b.device}")
+    _check_theta("theta_sweep_batched", up_b, tables2, coef)
+    out = _launch_theta(up_b, tables2, coef, is_low, is_high)
+    global theta_batched_launches
+    theta_batched_launches += 1
+    return out
+
+
+def theta_apply(tables2: torch.Tensor, lam: torch.Tensor, mu: torch.Tensor,
+                u: torch.Tensor) -> torch.Tensor:
+    """λ_b·K_λu_b + μ_b·K_μu_b on whole node grids u [B, 3, X, Y, Z] with
+    λ, μ [B] (zero ghosts, flags (1, 1)). One chain goes through theta_sweep,
+    more through one theta_sweep_batched launch."""
+    up = F.pad(u, (1, 1, 1, 1, 1, 1)).contiguous()
+    coef = torch.stack([lam, mu], dim=-1).to(u.dtype)
+    if u.shape[0] == 1:
+        return theta_sweep(up[0], tables2, coef[0], 1, 1)[None]
+    return theta_sweep_batched(up, tables2, coef, 1, 1)
+
+
+def theta_coef_grads(tables2: torch.Tensor, ct: torch.Tensor,
+                     u: torch.Tensor):
+    """(⟨ct_b, K_λu_b⟩, ⟨ct_b, K_μu_b⟩) per chain, from the unit-coefficient
+    sweeps (1, 0) and (0, 1): the cotangents of λ and μ in a·K_λu + b·K_μu.
+    """
+    one, nil = torch.ones_like(ct[:, 0, 0, 0, 0]), torch.zeros_like(
+        ct[:, 0, 0, 0, 0])
+    axes = tuple(range(1, ct.dim()))
+    return ((ct * theta_apply(tables2, one, nil, u)).sum(axes),
+            (ct * theta_apply(tables2, nil, one, u)).sum(axes))
+
+
+class ThetaSweep(torch.autograd.Function):
+    """(λ [B], μ [B], u [B, 3, X, Y, Z]) -> λ_b·K_λu_b + μ_b·K_μu_b, with
+    the reference's derivative rules (stan_tpu/fem/stencil.py:776-809):
+    the gradient in u is the same sweep of the cotangent (the operator is
+    self-adjoint), and the gradients in λ and μ are ⟨ct, K_λu⟩ and
+    ⟨ct, K_μu⟩ per chain. Usage: ThetaSweep.apply(lam, mu, u, tables2)."""
+
+    @staticmethod
+    def forward(ctx, lam, mu, u, tables2):
+        ctx.save_for_backward(lam, mu, u)
+        ctx.tables2 = tables2
+        return theta_apply(tables2, lam, mu, u)
+
+    @staticmethod
+    def backward(ctx, ct):
+        lam, mu, u = ctx.saved_tensors
+        g_lam = g_mu = g_u = None
+        if ctx.needs_input_grad[2]:
+            g_u = theta_apply(ctx.tables2, lam, mu, ct)
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            g_lam, g_mu = theta_coef_grads(ctx.tables2, ct, u)
+            g_lam, g_mu = g_lam.to(lam.dtype), g_mu.to(mu.dtype)
+        return g_lam, g_mu, g_u, None
 
 
 @dataclasses.dataclass(frozen=True)

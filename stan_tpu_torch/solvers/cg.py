@@ -11,6 +11,13 @@ The JAX loop runs on the device (lax.while_loop). Here the loop is Python,
 so the stopping test reads ||r|| on the host: one device sync per
 iteration, which keeps the iteration count identical to the reference's.
 Everything else in the iteration stays on the device.
+
+``pcg(..., batched=True)`` solves B independent systems at once (HMC
+chains): b carries a leading chain axis, A acts on the whole batch, and
+every reduction and threshold is per chain. It does what JAX's vmapped
+while_loop does: the loop runs while any chain runs, and a chain that has
+stopped is frozen with torch.where and its counter stops, so each chain's
+iterations, residual and flags are those of its own solve.
 """
 
 from __future__ import annotations
@@ -19,10 +26,14 @@ import math
 import time
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 
 class CGResult(NamedTuple):
+    """One solve's result; with batched=True, iters, residual, converged and
+    diverged are numpy arrays with one entry per chain."""
+
     u: torch.Tensor
     iters: int
     residual: float  # final ||r||
@@ -39,14 +50,19 @@ def pcg(
     maxiter: int = 0,
     ndof: Optional[int] = None,
     x0: Optional[torch.Tensor] = None,
+    batched: bool = False,
 ) -> CGResult:
     """Solve A u = b with Jacobi-preconditioned CG.
 
     A: SPD operator; b: right-hand side of any shape (reductions run over
     all elements); diag: diagonal of A for the preconditioner (None: none);
     maxiter 0 caps at ndof, which defaults to b.numel(); x0: initial guess
-    (zeros by default).
+    (zeros by default). batched: axis 0 of b is a chain axis of independent
+    systems (see the module docstring); ndof is then per chain and defaults
+    to b[0].numel().
     """
+    if batched:
+        return _pcg_batched(A, b, diag, tol, maxiter, ndof, x0)
     if maxiter == 0:
         maxiter = int(ndof if ndof is not None else b.numel())
     inv_diag = None if diag is None else torch.where(
@@ -84,6 +100,65 @@ def pcg(
         rnorm = float(torch.sqrt(torch.sum(r * r)))  # the per-iteration sync
     return CGResult(u=x, iters=k, residual=rnorm,
                     converged=rnorm <= threshold, diverged=bad(rnorm))
+
+
+def _pcg_batched(A, b, diag, tol, maxiter, ndof, x0) -> CGResult:
+    """pcg over a leading chain axis; the stopping test of every chain is
+    the unbatched one, on its own norms, read together once per
+    iteration."""
+    B = b.shape[0]
+    if maxiter == 0:
+        maxiter = int(ndof if ndof is not None else b[0].numel())
+    inv_diag = None if diag is None else torch.where(
+        diag != 0, 1.0 / diag, torch.zeros_like(diag))
+    wide = (B,) + (1,) * (b.dim() - 1)
+
+    def precond(r):
+        return r if inv_diag is None else inv_diag * r
+
+    def dot(u, v):  # per chain, over the chain's elements in order
+        return torch.sum((u * v).reshape(B, -1), dim=1)
+
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b - A(x)
+    z = precond(r)
+    p = z
+    rz = dot(r, z)
+    tiny = torch.finfo(b.dtype).tiny
+    bnorm, rnorm = torch.stack([torch.sqrt(dot(b, b)),
+                                torch.sqrt(dot(r, r))]).tolist()
+    threshold = [tol * max(v, tiny) for v in bnorm]
+    blowup = [1.0e8 * max(v, tiny) for v in bnorm]
+
+    def bad(c):
+        return not math.isfinite(rnorm[c]) or rnorm[c] > blowup[c]
+
+    k = [0] * B
+
+    def going():
+        return [rnorm[c] > threshold[c] and k[c] < maxiter and not bad(c)
+                for c in range(B)]
+
+    go = going()
+    while any(go):
+        run = torch.tensor(go, device=b.device)
+        wide_run = run.view(wide)
+        Ap = A(p)
+        alpha = (rz / dot(p, Ap)).view(wide)
+        x = torch.where(wide_run, x + alpha * p, x)
+        r_n = r - alpha * Ap
+        z = precond(r_n)
+        rz_n = dot(r_n, z)
+        p = torch.where(wide_run, z + (rz_n / rz).view(wide) * p, p)
+        r = torch.where(wide_run, r_n, r)
+        rz = torch.where(run, rz_n, rz)
+        rnorm = torch.sqrt(dot(r, r)).tolist()  # the per-iteration sync
+        k = [k[c] + go[c] for c in range(B)]
+        go = going()
+    return CGResult(
+        u=x, iters=np.array(k), residual=np.array(rnorm),
+        converged=np.array([rnorm[c] <= threshold[c] for c in range(B)]),
+        diverged=np.array([bad(c) for c in range(B)]))
 
 
 class RefinedResult(NamedTuple):

@@ -82,6 +82,93 @@ def test_divergence_guard_on_indefinite_operator():
     assert res.iters == int(ref.iters)
 
 
+def _chain_laplacian(B, n=40):
+    """B independent SPD systems A_c = (2 + s_c) I - shift - shift^T on a
+    line of n points, applied elementwise (no BLAS), with their diagonals
+    and right-hand sides of very different sizes."""
+    s = torch.tensor([0.01, 0.3, 2.0, 0.05][:B], dtype=F64)[:, None]
+
+    def A(x):  # x [B, n]
+        left = torch.nn.functional.pad(x[:, :-1], (1, 0))
+        right = torch.nn.functional.pad(x[:, 1:], (0, 1))
+        return (2.0 + s) * x - left - right
+
+    rng = np.random.default_rng(9)
+    b = torch.as_tensor(rng.standard_normal((B, n))
+                        * np.array([1.0, 1e3, 1e-3, 1.0])[:B, None])
+    return A, (2.0 + s).expand(B, n).contiguous(), b
+
+
+@pytest.mark.parametrize("tol", [1e-6, 1e-10])
+def test_batched_pcg_equals_independent_solves(tol):
+    """Each chain of a batched solve takes its own solve's iterations and
+    ends on its residual, flags and u (same operations in the same order,
+    so equal to the bit)."""
+    A, diag, b = _chain_laplacian(4)
+    b[3] = 0.0  # converged before the first iteration
+    res = cg.pcg(A, b, diag=diag, tol=tol, batched=True)
+    assert res.iters.shape == (4,) and res.iters[3] == 0
+    for c in range(4):
+        one = cg.pcg(lambda x: A(_pad_chain(x, c, 4))[c], b[c].clone(),
+                     diag=diag[c], tol=tol)
+        assert res.iters[c] == one.iters
+        assert res.residual[c] == one.residual
+        assert res.converged[c] == one.converged
+        assert res.diverged[c] == one.diverged
+        assert torch.equal(res.u[c], one.u)
+
+
+def _pad_chain(x, c, B):
+    """x as chain c of a batch of B (zeros elsewhere)."""
+    out = x.new_zeros((B,) + x.shape)
+    out[c] = x
+    return out
+
+
+def test_batched_pcg_cap_and_divergence_per_chain():
+    A, diag, b = _chain_laplacian(3)
+    res = cg.pcg(A, b, diag=diag, tol=1e-12, maxiter=5, batched=True)
+    assert (res.iters == 5).all() and not res.converged.any()
+    # One indefinite chain trips the guard alone; the others converge.
+    d = torch.tensor([[1.0, -1.0, 1.0, -1.0], [1.0, 2.0, 3.0, 4.0],
+                      [2.0, 2.0, 2.0, 2.0]], dtype=F64)
+    res = cg.pcg(lambda x: d * x, torch.ones((3, 4), dtype=F64), batched=True)
+    assert res.diverged.tolist() == [True, False, False]
+    assert res.converged.tolist() == [False, True, True]
+    one = cg.pcg(lambda x: d[0] * x, torch.ones(4, dtype=F64))
+    assert res.iters[0] == one.iters and one.diverged
+
+
+def test_batched_pcg_on_the_theta_operator():
+    """The calibration's chain-batched stencil operator (one batched theta
+    sweep per matvec) against each chain solved alone, at tol 1e-12:
+    identical iteration counts, final residuals within 10% of the threshold
+    of each other (both near the float64 floor there) and u to 1e-10 of
+    max|u|. The two sides contract in other
+    orders, so they agree to rounding, not to the bit; the elementwise
+    operator above checks the bitwise contract."""
+    from stan_tpu_torch.infer import forward
+
+    fwd = forward.build_forward(meshgen.hex_beam(5, 4, 3), dtype=F64,
+                                device="cpu")
+    lam = torch.tensor([1.1e5, 2.3e5, 0.7e5], dtype=F64)
+    mu = torch.tensor([7.9e4, 0.4e5, 1.6e5], dtype=F64)
+    b = (fwd.free_mask * fwd.f0 * torch.tensor([1.0, 1e3, 1e-2],
+                                               dtype=F64)[:, None, None, None,
+                                                          None])
+    res = cg.pcg(fwd.matvec_fn(lam, mu), b, diag=fwd.diagonal(lam, mu),
+                 tol=1e-12, batched=True)
+    for c in range(3):
+        one = cg.pcg(fwd.matvec_fn(lam[c:c + 1], mu[c:c + 1]), b[c:c + 1],
+                     diag=fwd.diagonal(lam[c:c + 1], mu[c:c + 1]), tol=1e-12)
+        assert res.iters[c] == one.iters and res.converged[c]
+        bnorm = float(torch.linalg.vector_norm(b[c]))
+        assert abs(res.residual[c] - one.residual) <= 0.1 * 1e-12 * bnorm
+        scale = float(one.u.abs().max())
+        np.testing.assert_allclose(res.u[c].numpy(), one.u[0].numpy(),
+                                   rtol=0, atol=1e-10 * scale)
+
+
 def test_pcg_refined_reaches_f64_target():
     """float32 inner solves under the float64 true residual, on the CPU."""
     m = meshgen.hex_beam(5, 4, 4)
