@@ -13,12 +13,23 @@ Phases, each of which raises on failure:
      and on the 32^3 calibration grid (the shape its main path runs), with
      two coefficient pairs, one of them the 32^3 calibration's (λ, μ) at
      θ_true, and theta_sweep_batched at [16, 3, 35, 35, 35] (16 chains
-     of the 32^3 grid, 16 distinct pairs) and on the small odd grid; all
-     four flag pairs, float32 and float64, random ghosts;
-  5. time per launch of each kernel and of its plain version, in turns, at
-     the main paths' shapes: [3, 73, 73, 73] (the 70^3 grid) for
-     stencil_sweep and theta_sweep, [16, 3, 35, 35, 35] for
-     theta_sweep_batched;
+     of the 32^3 grid, 16 distinct pairs) and on the small odd grid; then
+     shapes that stress the kernel's tiling: one x-plane (SX = 1) with 16
+     chains and with one, and a 6x9x140 beam (y and z extents no tile
+     divides, z over two tiles) with 3 chains and with one; all four flag
+     pairs, float32 and float64, random ghosts;
+  5. at the main paths' shapes ([3, 73, 73, 73], the 70^3 grid, for
+     stencil_sweep; [3, 35, 35, 35], the 32^3 grid, for theta_sweep, and
+     [3, 73, 73, 73] beside it; [16, 3, 35, 35, 35] for
+     theta_sweep_batched), float32 and float64: each kernel's time with the
+     L2 cache warm, by CUDA events around back-to-back wrapper calls in
+     turns with its plain version (the kernels line's ms) and from CUDA-graph
+     replays (ms_graph), and its time with the L2 flushed before each
+     launch (ms_cold); its
+     bound (the larger of one pass over its bytes at the HBM rate and its
+     multiply-adds at the peak rate, data sheet) and share of it; and the
+     time of one library call of the same function, torch.sparse.mm with
+     K (or [K_λ | K_μ]) assembled as CSR, checked against the kernel;
   6. the linear main path: solve_linear_statics(hex_beam(70, 70, 70),
      device="cuda") in float32 with float64 certification (1,073,733 DOF):
      operator "stencil", converged, certified residual <= 1e-6, and at
@@ -47,13 +58,15 @@ Two measurements run only when asked for:
              short run), printing the CLI's counts of unconverged solves.
 
 Prints a JSON line of kernel facts and, last, one JSON line naming the
-device. Exits non-zero, with no result, when there is no CUDA device.
+device; before those, it checks that no module of stan_tpu was loaded.
+Exits non-zero, with no result, when there is no CUDA device.
 
 Run from the repository root: python3 chip_smoke.py [--profile] [--cli]
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -76,6 +89,10 @@ FLAGS = ((1, 1), (0, 1), (1, 0), (0, 0))
 SYNC_ITERS = 200
 # tests/test_infer.py:227-236 (test_forward_gradient_finite_difference).
 FD_H, FD_REL, FD_ABS = 1e-4, 2e-3, 1e-3
+# H100 SXM data sheet: HBM3 rate, and peak rates outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+FLUSH_BYTES = 256 * 2**20  # > the 50 MB L2
 
 
 def require(cond, msg: str) -> None:
@@ -106,13 +123,146 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def in_turns(kern, plain, kreps=200, preps=20):
-    """(kernel ms, plain ms, readings) timed plain, kernel, kernel, plain."""
-    p1 = time_ms(plain, preps)
-    k1 = time_ms(kern, kreps)
-    k2 = time_ms(kern, kreps)
-    p2 = time_ms(plain, preps)
-    return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2, p1, p2)
+def time_cold_ms(fn, flush, reps: int = 50) -> float:
+    """Mean device time of fn() with the L2 cache flushed before each launch
+    (flush is a buffer larger than the 50 MB L2, rewritten each time)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in times) / reps
+
+
+def bound(up, out, extra_bytes: int, dtype) -> tuple:
+    """(bound in ms, "bytes" or "operations") of a sweep from up to out: one
+    read of every input and one write of the output over the card's memory
+    rate, against 243 multiply-adds per output node over the peak rate of
+    the type outside the tensor cores (both from the data sheet)."""
+    nbytes = (up.numel() + out.numel()) * up.element_size() + extra_bytes
+    ops = 2 * 243 * out.numel() // 3
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def assemble_csr(applies, node_shape, dtype, device="cuda"):
+    """[K_1 | K_2 | ...] as one CSR matrix [3N, 3N·len(applies)], each K_a
+    the matrix of applies[a] (u [3, X, Y, Z] -> K u, zero ghosts), with
+    rows and columns component-major as the sweeps lay out [3, X, Y, Z].
+
+    Each K is probed with the 81 vectors of a 3x3x3 node colouring times
+    the 3 components: a node's 3x3x3 window holds exactly one node of each
+    colour, so probe (colour, d) at row (c, n) is the entry of column
+    (d, the neighbour of n with that colour)."""
+    X, Y, Z = node_shape
+    N = X * Y * Z
+    ix = [torch.arange(n, device=device) for n in node_shape]
+    gx, gy, gz = torch.meshgrid(*ix, indexing="ij")
+    vals, cols = [], []
+    for a, apply in enumerate(applies):
+        probe = torch.empty((3, 3, 3, 3, 3, X, Y, Z), dtype=dtype,
+                            device=device)
+        for cx, cy, cz in itertools.product(range(3), repeat=3):
+            mask = ((gx % 3 == cx) & (gy % 3 == cy) & (gz % 3 == cz))
+            for d in range(3):
+                u = torch.zeros((3, X, Y, Z), dtype=dtype, device=device)
+                u[d] = mask.to(dtype)
+                probe[cx, cy, cz, d] = apply(u)
+        for d in range(3):
+            for ox, oy, oz in itertools.product((-1, 0, 1), repeat=3):
+                x, y, z = gx + ox, gy + oy, gz + oz
+                v = probe[x % 3, y % 3, z % 3, d, :, gx, gy, gz]  # [X,Y,Z,3]
+                ok = ((x >= 0) & (x < X) & (y >= 0) & (y < Y) & (z >= 0)
+                      & (z < Z))
+                vals.append(torch.where(ok[..., None], v, torch.nan)
+                            .permute(3, 0, 1, 2).reshape(3 * N))
+                cols.append(((a * 3 + d) * N + (x * Y + y) * Z + z)
+                            .reshape(1, N).expand(3, N).reshape(3 * N))
+    vals = torch.stack(vals, dim=1)  # [3N, 81·len(applies)], columns sorted
+    cols = torch.stack(cols, dim=1)
+    keep = ~torch.isnan(vals)
+    crow = torch.zeros(3 * N + 1, dtype=torch.int32, device=device)
+    crow[1:] = torch.cumsum(keep.sum(dim=1), 0)
+    return torch.sparse_csr_tensor(
+        crow, cols[keep].to(torch.int32), vals[keep],
+        size=(3 * N, 3 * N * len(applies)), check_invariants=False)
+
+
+def time_graph_ms(fn, per_graph: int = 20, reps: int = 20) -> float:
+    """Device time of one fn() from replays of a CUDA graph of per_graph
+    calls: the kernel's own time, without the wrapper's host cost, which
+    for a kernel of a few tens of µs is as long as the kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    return time_ms(graph.replay, reps) / per_graph
+
+
+def pad(u):
+    """Zero ghosts around the node grid(s), as the main paths pad."""
+    import torch.nn.functional as F
+
+    return F.pad(u, (1, 1, 1, 1, 1, 1)).contiguous()
+
+
+def theta_unit(t2, which: int):
+    """u [3, X, Y, Z] -> K_λ u (which 0) or K_μ u (1), by the plain sweep."""
+    from stan_tpu_torch.fem import stencil
+
+    coef = torch.zeros((1, 2), dtype=t2.dtype, device=t2.device)
+    coef[0, which] = 1.0
+    return lambda u: stencil.theta_sweep_reference(pad(u)[None], t2, coef,
+                                                   1, 1)[0]
+
+
+def measure(name, up, kern, plain, lib, lib_as_out, extra_bytes, flush,
+            card) -> dict:
+    """A kernel at a main path's shape: its time with the L2 cache warm, by
+    CUDA events around back-to-back wrapper calls in turns with the plain
+    version (ms) and from CUDA-graph replays (ms_graph, the kernel alone);
+    its time with the L2 flushed (ms_cold); its bound; and the time of one
+    library call of the same function (checked against the kernel on these
+    inputs first)."""
+    out = kern()
+    got = lib_as_out(lib())
+    torch.cuda.synchronize()
+    gap = float((got - out).abs().max()) / float(out.abs().max())
+    require(gap <= SWEEP_RTOL[out.dtype],
+            f"{name}: library call differs from the kernel by {gap}")
+    p1 = time_ms(plain, 20)
+    k1 = time_ms(kern, 200)
+    k2 = time_ms(kern, 200)
+    p2 = time_ms(plain, 20)
+    g1 = time_graph_ms(kern)
+    g2 = time_graph_ms(kern)
+    cold = time_cold_ms(kern, flush)
+    lib_ms = time_ms(lib, 50)
+    bound_ms, bound_by = bound(up, out, extra_bytes, out.dtype)
+    ms_graph = (g1 + g2) / 2
+    print(f"[{card}] {name} {list(up.shape)} {str(out.dtype)[6:]}: kernel "
+          f"{k1 * 1e3:.2f} / {k2 * 1e3:.2f} µs warm (events around wrapper "
+          f"calls), {g1 * 1e3:.2f} / {g2 * 1e3:.2f} µs warm (CUDA graph), "
+          f"{cold * 1e3:.2f} µs cold L2; plain {p1:.4f} / {p2:.4f} ms; "
+          f"library torch.sparse.mm {lib_ms * 1e3:.2f} µs (relative gap "
+          f"{gap:.1e}); bound {bound_ms * 1e3:.2f} µs ({bound_by}), share "
+          f"of the CUDA-graph time {bound_ms / ms_graph:.1%}")
+    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "ms_cold": cold, "ms_graph": ms_graph}
 
 
 def check_close(f, f_ref, dtype, label, card) -> float:
@@ -158,13 +308,17 @@ def unit_tables(model):
             base.node_shape)
 
 
-def compare_theta(model, coefs, rng, label, card, batched: bool) -> dict:
+def compare_theta(model, coefs, rng, label, card, batched: bool,
+                  sx=None) -> dict:
     """theta_sweep (coefs [P, 2]: one check per pair) or theta_sweep_batched
-    (coefs [B, 2]: one batch) against theta_sweep_reference; returns
-    {(dtype, flags): max abs error over the checks}."""
+    (coefs [B, 2]: one batch) against theta_sweep_reference, on the model's
+    grid or, with sx, on a slab of sx x-planes of it; returns {(dtype,
+    flags): max abs error over the checks}."""
     from stan_tpu_torch.fem import stencil
 
     tl, tm, node_shape = unit_tables(model)
+    if sx is not None:
+        node_shape = (sx, *node_shape[1:])
     padded = tuple(n + 2 for n in node_shape)
     errs = {}
     for dtype in (torch.float32, torch.float64):
@@ -325,8 +479,8 @@ def cli_calibration(card) -> None:
     unconverged solves."""
     import tempfile
 
-    from stan_tpu.core import meshgen
-    from stan_tpu.io import stdb
+    from stan_tpu_torch.core import meshgen
+    from stan_tpu_torch.io import stdb
     from stan_tpu_torch import cli
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -357,7 +511,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
-    from stan_tpu.core import meshgen
+    from stan_tpu_torch.core import meshgen
     from stan_tpu_torch import _build
     from stan_tpu_torch.analysis.linear import solve_linear_statics
     from stan_tpu_torch.fem import stencil, structured
@@ -409,47 +563,82 @@ def main() -> int:
                                  f"[{CHAINS},3,{G + 3},{G + 3},{G + 3}]",
                                  card, True)
     compare_theta(small, chain_pairs[:3], rng, "5x4x3", card, True)
+    # Shapes that stress the kernel's tiling: one x-plane (every plane a
+    # face), y and z extents that no tile width divides, z over two tiles.
+    compare_theta(cal_model, chain_pairs, rng, f"[{CHAINS},3,3,35,35] SX=1",
+                  card, True, sx=1)
+    compare_theta(small, pairs, rng, "5x4x3 SX=1", card, False, sx=1)
+    long_z = meshgen.hex_beam(6, 9, 140, lx=6.0, ly=9.0, lz=140.0)
+    compare_theta(long_z, chain_pairs[:3], rng, "[3,3,9,12,143]", card, True)
+    compare_theta(long_z, pairs[:1], rng, "[3,9,12,143]", card, False)
 
-    # -- time per launch at the main paths' shapes, in turns --------------
-    times = {}
+    # -- time, bound and library call at the main paths' shapes -----------
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    facts = {}
     tl70, tm70, shape70 = unit_tables(model)
     tl32, tm32, shape32 = unit_tables(cal_model)
+    n70, n32 = 3 * int(np.prod(shape70)), 3 * int(np.prod(shape32))
     for dtype in (torch.float32, torch.float64):
+        # Zero ghosts, as the main paths pad, so that one product with the
+        # assembled K computes the same function.
+        u70 = torch.as_tensor(rng.standard_normal((3, *shape70)),
+                              dtype=dtype, device="cuda")
+        up70 = pad(u70)
         table = stencil.pack_tables(op32.tables, dtype, "cuda")
-        up = torch.as_tensor(
-            rng.standard_normal((3, *(n + 2 for n in op32.node_shape))),
-            dtype=dtype, device="cuda")
-        k, p, r = in_turns(lambda: stencil.stencil_sweep(up, table, 1, 1),
-                           lambda: stencil.stencil_sweep_reference(
-                               up, table, 1, 1))
-        times[("stencil_sweep", dtype)] = (k, p)
-        print(f"[{card}] stencil_sweep {list(up.shape)} {str(dtype)[6:]}: "
-              f"kernel {r[0]:.4f} / {r[1]:.4f} ms, plain {r[2]:.4f} / "
-              f"{r[3]:.4f} ms")
+        K = assemble_csr([lambda u: stencil.stencil_sweep_reference(
+            pad(u), table, 1, 1)], shape70, dtype)
+        vec = u70.reshape(n70, 1)
+        facts[("stencil_sweep", dtype)] = measure(
+            "stencil_sweep", up70,
+            lambda: stencil.stencil_sweep(up70, table, 1, 1),
+            lambda: stencil.stencil_sweep_reference(up70, table, 1, 1),
+            lambda: torch.sparse.mm(K, vec), lambda r: r.reshape(3, *shape70),
+            table.numel() * table.element_size(), flush, card)
+        del K
 
-        t2 = stencil.pack_theta_tables(tl70, tm70, dtype, "cuda")
-        coef = torch.as_tensor(pairs[0], dtype=dtype, device="cuda")
-        k, p, r = in_turns(
-            lambda: stencil.theta_sweep(up, t2, coef, 1, 1),
-            lambda: stencil.theta_sweep_reference(up[None], t2, coef[None],
-                                                  1, 1))
-        times[("theta_sweep", dtype)] = (k, p)
-        print(f"[{card}] theta_sweep {list(up.shape)} {str(dtype)[6:]}: "
-              f"kernel {r[0]:.4f} / {r[1]:.4f} ms, plain {r[2]:.4f} / "
-              f"{r[3]:.4f} ms")
+        # theta_sweep at the 32^3 grid, where the calibration path runs it,
+        # and at the 70^3 grid, the shape earlier runs timed it at.
+        for key, (tl, tm, shape) in ((("theta_sweep", dtype),
+                                      (tl32, tm32, shape32)),
+                                     (("theta_sweep 70^3", dtype),
+                                      (tl70, tm70, shape70))):
+            t2 = stencil.pack_theta_tables(tl, tm, dtype, "cuda")
+            coef = torch.as_tensor(pairs[0], dtype=dtype, device="cuda")
+            u = torch.as_tensor(rng.standard_normal((3, *shape)),
+                                dtype=dtype, device="cuda")
+            up = pad(u)
+            K = assemble_csr([theta_unit(t2, 0), theta_unit(t2, 1)], shape,
+                             dtype)
+            v = u.reshape(-1, 1)
+            V = torch.cat([coef[0] * v, coef[1] * v])
+            facts[key] = measure(
+                "theta_sweep", up,
+                lambda: stencil.theta_sweep(up, t2, coef, 1, 1),
+                lambda: stencil.theta_sweep_reference(up[None], t2,
+                                                      coef[None], 1, 1),
+                lambda: torch.sparse.mm(K, V),
+                lambda r: r.reshape(3, *shape),
+                (t2.numel() + coef.numel()) * t2.element_size(), flush, card)
+            del K, V
 
         t2 = stencil.pack_theta_tables(tl32, tm32, dtype, "cuda")
         coef_b = torch.as_tensor(chain_pairs, dtype=dtype, device="cuda")
-        up_b = torch.as_tensor(rng.standard_normal(
-            (CHAINS, 3) + tuple(n + 2 for n in shape32)), dtype=dtype,
-            device="cuda")
-        k, p, r = in_turns(
+        u_b = torch.as_tensor(rng.standard_normal((CHAINS, 3, *shape32)),
+                              dtype=dtype, device="cuda")
+        up_b = pad(u_b)
+        K = assemble_csr([theta_unit(t2, 0), theta_unit(t2, 1)], shape32,
+                         dtype)
+        flat = u_b.reshape(CHAINS, n32).T
+        V = torch.cat([coef_b[:, 0] * flat, coef_b[:, 1] * flat]).contiguous()
+        facts[("theta_sweep_batched", dtype)] = measure(
+            "theta_sweep_batched", up_b,
             lambda: stencil.theta_sweep_batched(up_b, t2, coef_b, 1, 1),
-            lambda: stencil.theta_sweep_reference(up_b, t2, coef_b, 1, 1))
-        times[("theta_sweep_batched", dtype)] = (k, p)
-        print(f"[{card}] theta_sweep_batched {list(up_b.shape)} "
-              f"{str(dtype)[6:]}: kernel {r[0]:.4f} / {r[1]:.4f} ms, plain "
-              f"{r[2]:.4f} / {r[3]:.4f} ms")
+            lambda: stencil.theta_sweep_reference(up_b, t2, coef_b, 1, 1),
+            lambda: torch.sparse.mm(K, V),
+            lambda r: r.T.reshape(CHAINS, 3, *shape32),
+            (t2.numel() + coef_b.numel()) * t2.element_size(), flush, card)
+        del K, V
+    del flush
 
     # -- the linear main path ---------------------------------------------
     model = meshgen.hex_beam(N, N, N)
@@ -598,6 +787,8 @@ def main() -> int:
         ("theta_sweep_batched", "stan_tpu_torch/csrc/theta_sweep.cu",
          "stan_tpu/fem/stencil.py:610", batched_launches, batched_errs),
     )
+    stray = sorted(m for m in sys.modules if m.split(".")[0] == "stan_tpu")
+    require(not stray, f"the port loaded modules of stan_tpu: {stray}")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -605,8 +796,7 @@ def main() -> int:
         "replaces": replaces,
         "launches": n,
         "max_abs_err": err[(torch.float32, (1, 1))],
-        "ms": times[(name, torch.float32)][0],
-        "plain_ms": times[(name, torch.float32)][1],
+        **facts[(name, torch.float32)],
     } for name, source, replaces, n, err in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

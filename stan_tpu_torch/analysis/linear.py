@@ -18,7 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from stan_tpu.core.model import FEModel
+from stan_tpu_torch.core.model import FEModel
 from stan_tpu_torch.fem import kernels
 from stan_tpu_torch.fem import stencil as stencil_mod
 from stan_tpu_torch.fem import structured as structured_mod

@@ -39,9 +39,9 @@ BANNER = r"""
 def _cmd_solve(args) -> int:
     # io.stdb needs protobuf; it is imported here only, never with the
     # package, so the solver runs where protobuf is not installed.
-    from stan_tpu.core import validate
-    from stan_tpu.io import stdb
-    from stan_tpu.utils import config as config_mod
+    from stan_tpu_torch.core import validate
+    from stan_tpu_torch.io import stdb
+    from stan_tpu_torch.utils import config as config_mod
     from stan_tpu_torch.analysis.linear import solve_linear_statics
     from stan_tpu_torch.utils.timing import PhaseTimer
 
@@ -95,9 +95,9 @@ def _cmd_calibrate(args) -> int:
     import numpy as np
     import torch
 
-    from stan_tpu.core import validate
-    from stan_tpu.io import stdb
-    from stan_tpu.utils import config as config_mod
+    from stan_tpu_torch.core import validate
+    from stan_tpu_torch.io import stdb
+    from stan_tpu_torch.utils import config as config_mod
     from stan_tpu_torch.infer import calibrate as cal_mod
     from stan_tpu_torch.infer import hmc as hmc_mod
     from stan_tpu_torch.utils.timing import PhaseTimer
@@ -215,7 +215,7 @@ def main(argv=None) -> int:
                    help="only CG is ported; the direct solvers raise")
     p.add_argument("--tol", type=float)
     p.add_argument("--maxiter", type=int)
-    p.add_argument("--config", help="TOML run config (stan_tpu/utils/config.py)")
+    p.add_argument("--config", help="TOML run config (utils/config.py)")
     p.add_argument("--device", default="cuda",
                    help="torch device to solve on (default: cuda)")
     p.set_defaults(fn=_cmd_solve)
@@ -237,7 +237,7 @@ def main(argv=None) -> int:
                    help="relative tolerance of the forward and adjoint CG "
                         "solves (default 1e-6: the port samples in float32, "
                         "where CG cannot be relied on to reach 1e-8)")
-    p.add_argument("--config", help="TOML run config (stan_tpu/utils/config.py)")
+    p.add_argument("--config", help="TOML run config (utils/config.py)")
     p.add_argument("--device", default="cuda",
                    help="torch device to sample on (default: cuda)")
     p.set_defaults(fn=_cmd_calibrate)

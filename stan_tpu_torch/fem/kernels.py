@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from stan_tpu.fem.elements import ElementFormulation
+from stan_tpu_torch.fem.elements import ElementFormulation
 
 
 def det3(J: torch.Tensor) -> torch.Tensor:

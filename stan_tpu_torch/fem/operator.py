@@ -22,7 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from stan_tpu.fem.elements import ElementFormulation
+from stan_tpu_torch.fem.elements import ElementFormulation
 from stan_tpu_torch.fem import kernels
 
 

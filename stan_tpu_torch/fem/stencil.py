@@ -38,7 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from stan_tpu.core.model import FEModel
+from stan_tpu_torch.core.model import FEModel
 from stan_tpu_torch import _build
 from stan_tpu_torch.fem import structured
 from stan_tpu_torch.fem.structured import StructuredOperator

@@ -24,9 +24,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from stan_tpu.core.model import FEModel
-from stan_tpu.fem import hostops
-from stan_tpu.fem.elements import ElementFormulation
+from stan_tpu_torch.core.model import FEModel
+from stan_tpu_torch.fem import hostops
+from stan_tpu_torch.fem.elements import ElementFormulation
 from stan_tpu_torch.fem.operator import default_dtype, resolve_device
 
 # HEX8 node -> grid-corner offset (meshgen.hex_beam ordering).

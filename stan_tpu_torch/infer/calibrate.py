@@ -25,7 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from stan_tpu.core.model import FEModel
+from stan_tpu_torch.core.model import FEModel
 from stan_tpu_torch.infer import forward as fwd_mod
 
 

@@ -31,7 +31,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from stan_tpu.core.model import FEModel
+from stan_tpu_torch.core.model import FEModel
 from stan_tpu_torch.fem import stencil, structured
 from stan_tpu_torch.fem.operator import default_dtype
 from stan_tpu_torch.solvers import cg as cg_mod

@@ -33,7 +33,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from stan_tpu.utils import checkpoint as ckpt
+from stan_tpu_torch.utils import checkpoint as ckpt
 
 _WARMUP, _SAMPLE, _STEP_SEARCH = 0, 1, 2  # generator streams
 

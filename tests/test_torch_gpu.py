@@ -1,7 +1,8 @@
 """Tests of the port's CUDA kernels and CUDA paths; they need a card.
 
-They skip where torch sees no CUDA device. This file imports no jax, so it
-also runs where jax is not installed, without the repository's conftest:
+They skip where torch sees no CUDA device. This file imports no jax and
+nothing of stan_tpu, so it also runs where jax is not installed, without
+the repository's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
@@ -10,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from stan_tpu.core import meshgen
+from stan_tpu_torch.core import meshgen
 from stan_tpu_torch.analysis.linear import solve_linear_statics
 from stan_tpu_torch.fem import stencil
 
@@ -74,7 +75,9 @@ def test_cuda_solve_matches_cpu_float64():
     assert np.isfinite(res.stress).all() and np.isfinite(res.reactions).all()
 
 
-def _theta_case(n, kw, dtype, B, seed):
+def _theta_case(n, kw, dtype, B, seed, sx=None):
+    """Unit tables of hex_beam(*n, **kw), random slabs of B chains (of sx
+    x-planes if given) with random ghosts, and random coefficients."""
     from stan_tpu_torch.fem import structured
 
     base = structured.build_structured_operator(
@@ -82,10 +85,10 @@ def _theta_case(n, kw, dtype, B, seed):
     t2 = stencil.pack_theta_tables(
         stencil.signature_tables(base.ke_lam.cpu().numpy()),
         stencil.signature_tables(base.ke_mu.cpu().numpy()), dtype, "cuda")
+    shape = base.node_shape if sx is None else (sx, *base.node_shape[1:])
     rng = np.random.default_rng(seed)
     up = torch.as_tensor(rng.standard_normal(
-        (B, 3, *(k + 2 for k in base.node_shape))), dtype=dtype,
-        device="cuda")
+        (B, 3, *(k + 2 for k in shape))), dtype=dtype, device="cuda")
     coef = torch.as_tensor(np.stack([rng.uniform(5e4, 2e5, B),
                                      rng.uniform(3e4, 1e5, B)], axis=1),
                            dtype=dtype, device="cuda")
@@ -112,6 +115,26 @@ def test_theta_kernels_match_plain_version(n, kw, flags, dtype):
             ref[b].abs().max())
     assert float((f_1 - ref[1]).abs().max()) <= RTOL[dtype] * float(
         ref[1].abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("flags", [(1, 1), (0, 1), (1, 0), (0, 0)])
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("n,sx", [((32, 32, 32), None), ((32, 32, 32), 1),
+                                  ((6, 9, 140), None), ((13, 5, 37), 1)])
+def test_theta_kernel_tiling(n, sx, B, flags, dtype):
+    """Shapes that stress the kernel's tiles: the calibration grid (35 y and
+    z nodes, which no tile width divides), one x-plane (every plane a face),
+    z over two tiles (141 nodes), one chain and sixteen."""
+    _need_cuda()
+    up, t2, coef = _theta_case(n, {}, dtype, B, sum(n) + B, sx)
+    f = (stencil.theta_sweep(up[0], t2, coef[0], *flags)[None] if B == 1
+         else stencil.theta_sweep_batched(up, t2, coef, *flags))
+    ref = stencil.theta_sweep_reference(up, t2, coef, *flags)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(f).all())
+    assert float((f - ref).abs().max()) <= RTOL[dtype] * float(
+        ref.abs().max())
 
 
 def test_theta_kernels_refuse_bad_input():

@@ -243,8 +243,12 @@ def _run(code, cwd=REPO):
                           timeout=300)
 
 
-def test_port_never_imports_jax():
-    proc = _run("""
+def test_port_never_imports_jax(tmp_path):
+    """In a fresh process: import every module of the port and chip_smoke,
+    solve a beam from the port's own meshgen, and run the CLI's solve on an
+    STdb the port's own stdb wrote; then nothing of stan_tpu, jax or jaxlib
+    may be loaded."""
+    proc = _run(f"""
         import importlib, pkgutil, sys
         import torch
         import chip_smoke
@@ -252,18 +256,24 @@ def test_port_never_imports_jax():
         for mod in pkgutil.walk_packages(stan_tpu_torch.__path__,
                                          "stan_tpu_torch."):
             importlib.import_module(mod.name)
-        from stan_tpu.core import meshgen
+        from stan_tpu_torch import cli
+        from stan_tpu_torch.core import meshgen
+        from stan_tpu_torch.io import stdb
         from stan_tpu_torch.analysis.linear import solve_linear_statics
         r = solve_linear_statics(meshgen.hex_beam(3, 3, 3), device="cpu",
                                  dtype=torch.float64)
         assert r.converged and r.operator == "stencil", r
-        jax = sorted(m for m in sys.modules if m.split(".")[0] in
-                     ("jax", "jaxlib"))
-        assert not jax, jax
+        path = {str(tmp_path / "beam.STdb")!r}
+        stdb.write(meshgen.hex_beam(3, 3, 3), path)
+        assert cli.main(["solve", path, "--device", "cpu"]) == 0
+        assert stdb.read(path).disp is not None
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("stan_tpu", "jax", "jaxlib"))
+        assert not bad, bad
         print("ok")
     """)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok"
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_chip_smoke_refuses_without_cuda():
