@@ -7,8 +7,10 @@ Phases, each of which raises on failure:
      started together), print the build time and the assembler's register
      reports;
   3. stencil_sweep against its plain PyTorch version on the card, on the
-     70^3 beam's tables and on a small odd grid, with the x-face flags
-     (1,1), (0,1), (1,0), (0,0), in float32 and float64;
+     70^3 beam's tables, on a small odd grid, on the 32^3 grid, on one
+     x-plane (SX = 1) of it and on a 6x9x140 beam (z over two tiles), with
+     the x-face flags (1,1), (0,1), (1,0), (0,0), in float32 and float64,
+     random ghosts;
   4. theta_sweep (one grid) against its plain version on the same two grids
      and on the 32^3 calibration grid (the shape its main path runs), with
      two coefficient pairs, one of them the 32^3 calibration's (λ, μ) at
@@ -47,11 +49,17 @@ Phases, each of which raises on failure:
  10. the gradient of the calibration's log posterior on the card in float64
      against central finite differences, at one θ (log E, ν and load).
 
+--kernels runs phases 1-5 only (build, every kernel against its plain
+version, the timings), prints the kernels line with no launch counts (no
+main path ran) and ends with a line that says the run was partial, not
+with the ok line: a quick probe of the kernels alone.
+
 Two measurements run only when asked for:
-  --profile  one 16-chain gradient of the 32^3 posterior near θ_true under
-             torch.profiler: wall time, chain-batched CG iterations, ms per
-             iteration, device busy share, device time by kernel, launches
-             per iteration;
+  --profile  100 float32 CG iterations on the 70^3 stencil operator, and
+             one 16-chain gradient of the 32^3 posterior near θ_true, under
+             torch.profiler: wall time, (chain-batched) CG iterations, ms
+             per iteration, device busy share, device time by kernel,
+             launches per iteration;
   --cli      `python -m stan_tpu_torch.cli calibrate --synthetic --sampler
              hmc --device cuda` on an STdb of the 32^3 beam (needs
              protobuf), at the CLI's default tolerance and at 1e-8 (a
@@ -61,7 +69,8 @@ Prints a JSON line of kernel facts and, last, one JSON line naming the
 device; before those, it checks that no module of stan_tpu was loaded.
 Exits non-zero, with no result, when there is no CUDA device.
 
-Run from the repository root: python3 chip_smoke.py [--profile] [--cli]
+Run from the repository root:
+  python3 chip_smoke.py [--profile] [--cli] | [--kernels]
 """
 
 from __future__ import annotations
@@ -472,6 +481,39 @@ def profile_gradient(prob, card, top: int = 10) -> None:
               f"{e.key[:90]}")
 
 
+def profile_linear(op, rhs, diag, card, iters: int = 100, top: int = 6
+                   ) -> None:
+    """iters float32 CG iterations on the 70^3 stencil operator (the base
+    solve's loop, with its per-iteration host check) under torch.profiler:
+    wall and device busy time per iteration, busy share, device time by
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from stan_tpu_torch.solvers import cg
+
+    run = lambda: cg.pcg(op.apply, rhs, diag=diag, tol=0.0,  # noqa: E731
+                         maxiter=iters)
+    run()
+    wall_s = wall(run)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in dev)
+    launches = sum(e.count for e in dev)
+    print(f"[{card}] profile, {iters} float32 CG iterations on the {N}^3 "
+          f"stencil operator: {wall_s / iters * 1e3:.4f} ms per iteration "
+          f"unprofiled; device busy {busy_us / iters / 1e3:.4f} ms per "
+          f"iteration, busy share {busy_us / 1e6 / wall_s:.3f}; "
+          f"{launches / iters:.1f} device events per iteration")
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"[{card}]   {e.self_device_time_total / busy_us:6.1%} "
+              f"{e.count:7d} x {e.self_device_time_total / e.count:8.2f} us  "
+              f"{e.key[:90]}")
+
+
 def cli_calibration(card) -> None:
     """The calibrate command on an STdb of the 32^3 beam, at the CLI's
     default tolerance and (shorter: 1 warmup transition, 4 draws, the
@@ -499,6 +541,34 @@ def cli_calibration(card) -> None:
             require(rc == 0, f"cli calibrate {extra}: exit code {rc}")
 
 
+def device() -> dict:
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}
+
+
+def print_kernels(errs, theta_errs, batched_errs, facts, launches) -> None:
+    """The kernels line: each kernel's facts, with the main paths' launch
+    counts (stencil_sweep, theta_sweep, theta_sweep_batched), or null for
+    each where no main path ran."""
+    rows = (
+        ("stencil_sweep", "stan_tpu_torch/csrc/stencil_sweep.cu",
+         "stan_tpu/fem/stencil.py:218", errs),
+        ("theta_sweep", "stan_tpu_torch/csrc/theta_sweep.cu",
+         "stan_tpu/fem/stencil.py:570", theta_errs),
+        ("theta_sweep_batched", "stan_tpu_torch/csrc/theta_sweep.cu",
+         "stan_tpu/fem/stencil.py:610", batched_errs),
+    )
+    print(json.dumps({"kernels": [{
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": None if launches is None else launches[i],
+        "max_abs_err": err[(torch.float32, (1, 1))],
+        **facts[(name, torch.float32)],
+    } for i, (name, source, replaces, err) in enumerate(rows)]}))
+
+
 def main() -> int:
     import argparse
 
@@ -507,6 +577,9 @@ def main() -> int:
                         help="profile one calibration gradient")
     parser.add_argument("--cli", action="store_true",
                         help="run the calibrate command on the 32^3 beam")
+    parser.add_argument("--kernels", action="store_true",
+                        help="phases 1-5 only: build, check and time the "
+                             "kernels; no main path, no ok line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -546,6 +619,19 @@ def main() -> int:
                                               device="cuda")
     compare_sweeps(op_small.tables, op_small.node_shape, rng,
                    "5x4x3 (lx=6, ly=1.5, lz=3)", card)
+    # The shapes that stress the tiles (as for theta_sweep below): the 32^3
+    # grid (35 y and z nodes, which no tile width divides), one x-plane of
+    # it (every plane a face) and z over two tiles (141 nodes).
+    op_cal = stencil.build_stencil_operator(meshgen.hex_beam(G, G, G),
+                                            dtype=torch.float64,
+                                            device="cuda")
+    compare_sweeps(op_cal.tables, op_cal.node_shape, rng, f"{G}^3", card)
+    compare_sweeps(op_cal.tables, (1, *op_cal.node_shape[1:]), rng,
+                   f"{G}^3 SX=1", card)
+    op_long = stencil.build_stencil_operator(
+        meshgen.hex_beam(6, 9, 140, lx=6.0, ly=9.0, lz=140.0),
+        dtype=torch.float64, device="cuda")
+    compare_sweeps(op_long.tables, op_long.node_shape, rng, "6x9x140", card)
 
     lam_true, mu_true = forward.lame_from_E_nu(np.exp(THETA_TRUE[0]),
                                                THETA_TRUE[1])
@@ -639,6 +725,11 @@ def main() -> int:
             (t2.numel() + coef_b.numel()) * t2.element_size(), flush, card)
         del K, V
     del flush
+    if args.kernels:
+        print_kernels(errs, theta_errs, batched_errs, facts, None)
+        print(json.dumps({"partial": "kernels only (phases 1-5): no main "
+                          "path ran", "device": device()}))
+        return 0
 
     # -- the linear main path ---------------------------------------------
     model = meshgen.hex_beam(N, N, N)
@@ -713,6 +804,8 @@ def main() -> int:
     print(f"[{card}] CG iteration, float32 stencil, {SYNC_ITERS} iterations: "
           f"{per_s:.4f} ms with the per-iteration sync, {per_n:.4f} ms "
           f"without; sync cost {per_s - per_n:.4f} ms/iteration")
+    if args.profile:
+        profile_linear(op32, rhs, diag, card)
 
     # -- the calibration main path ----------------------------------------
     cal_model = meshgen.hex_beam(G, G, G)
@@ -779,28 +872,11 @@ def main() -> int:
     if args.cli:
         cli_calibration(card)
 
-    rows = (
-        ("stencil_sweep", "stan_tpu_torch/csrc/stencil_sweep.cu",
-         "stan_tpu/fem/stencil.py:218", launches, errs),
-        ("theta_sweep", "stan_tpu_torch/csrc/theta_sweep.cu",
-         "stan_tpu/fem/stencil.py:570", theta_launches, theta_errs),
-        ("theta_sweep_batched", "stan_tpu_torch/csrc/theta_sweep.cu",
-         "stan_tpu/fem/stencil.py:610", batched_launches, batched_errs),
-    )
     stray = sorted(m for m in sys.modules if m.split(".")[0] == "stan_tpu")
     require(not stray, f"the port loaded modules of stan_tpu: {stray}")
-    print(json.dumps({"kernels": [{
-        "name": name,
-        "route": "cuda",
-        "source": source,
-        "replaces": replaces,
-        "launches": n,
-        "max_abs_err": err[(torch.float32, (1, 1))],
-        **facts[(name, torch.float32)],
-    } for name, source, replaces, n, err in rows]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print_kernels(errs, theta_errs, batched_errs, facts,
+                  (launches, theta_launches, batched_launches))
+    print(json.dumps({"ok": True, "device": device()}))
     return 0
 
 

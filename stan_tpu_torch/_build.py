@@ -5,8 +5,9 @@ builds a shared library from a source in seconds; nothing includes
 PyTorch's headers. Every source becomes its own library, and the ``nvcc``
 calls for all of them start together. A library goes into
 ``stan_tpu_torch/_build/`` (listed in .gitignore), named by a hash of its
-source and the flags, so an edited source is rebuilt and an unchanged one
-is loaded as it is. Pointers and the stream are passed as
+source, every header under ``csrc/`` (``*.cuh``, ``*.h``) and the flags, so
+an edited source is rebuilt, an edited header rebuilds every library, and
+an unchanged one is loaded as it is. Pointers and the stream are passed as
 ``ctypes.c_void_p`` from ``tensor.data_ptr()`` and
 ``torch.cuda.current_stream().cuda_stream``.
 
@@ -54,8 +55,12 @@ def sources() -> list:
 
 
 def library_path(source: pathlib.Path) -> pathlib.Path:
-    """Where the library for this exact source and flag set lives."""
-    key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where the library for this exact source, the headers beside it and
+    the flag set lives: an edit to any of them gives another path."""
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted([*source.parent.glob("*.cuh"), *source.parent.glob("*.h")])
+    for path in (source, *headers):
+        key.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
     return BUILD_DIR / f"{source.stem}-{key.hexdigest()[:16]}.so"
 
 

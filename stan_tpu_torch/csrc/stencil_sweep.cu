@@ -14,86 +14,71 @@
 // of stan_tpu_torch/fem/stencil.py:_SIGS); offset index
 // 9*(ox+1) + 3*(oy+1) + (oz+1).
 //
-// Design. One thread per output node computes its three components. The TPU
-// kernel applies the interior table to a whole block and then overwrites
-// faces, edges and corners tier by tier; here each thread picks its node's
-// own exact signature table directly (x from i against the slab ends and
-// the two flags, y and z from j and k against the grid ends) and sums the
-// 27 offsets of that table. The last tier that writes a node on the TPU is
-// the one whose signature is exactly the node's, so the rows are the same,
-// with no overwrite passes and no branch in the inner loop. The ghost layer
-// keeps every read in bounds.
+// What bounds it on an H100. A node costs 243 multiply-adds against 12
+// bytes of output and about 12 bytes of input (float): with up [3, 73, 73,
+// 73] one read of up and one write of out is 9.0 MB (2.7 µs at 3.35 TB/s)
+// against 0.17 GFLOP (2.6 µs at 67 TFLOP/s), so the card could do it in
+// about 3 µs. What holds a sweep of this size back is the issue of loads
+// (a node's 81 neighbours and 243 coefficients) and the latency of each
+// block's start, on a grid that gives each SM only about 2,700 nodes.
 //
-// What bounds it on an H100: device-memory bytes. A node costs 243 FMAs
-// against 12 bytes of output and, once neighbours are reused through L1
-// and L2, about 12 bytes of input (float); that is far below the card's
-// FLOP-per-byte ridge. The design keeps the traffic near one read of `up`
-// and one write of `out`: consecutive threads take consecutive k (the
-// unit-stride axis), so every one of a warp's 81 neighbour reads is a
-// coalesced row that neighbouring warps and planes share in cache, and the
-// 26 KB (float) / 52 KB (double) table goes through the read-only data
-// cache, where the threads of a warp almost always read the same entry.
+// Design: the tile machinery of sweep_tile.cuh, shared with theta_sweep.cu
+// (2.5D blocking with a cp.async ring of x-planes, R x-planes per thread in
+// registers, signature slots in shared memory filled once per block, face
+// planes swept as interior and corrected by a difference row), with B = 1
+// and the one table copied into the slots. The TPU kernel's tiers of
+// overwrites for faces, edges and corners become the per-lane choice of a
+// slot; the ghost layer keeps every read in bounds. Each type has its own
+// launch shape (Shape below): float and double differ in registers and in
+// shared memory per plane.
 
-#include <cuda_runtime.h>
+#include "sweep_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace sweep_tile;
 
+// Launch shape per type: x-planes per group, threads per block, tile-row
+// padding, widest z tile, blocks per SM aimed for by the x chunks, planes
+// of the two face chunks (0: as long as the others).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-stencil_sweep_kernel(const T* __restrict__ up, const T* __restrict__ table,
-                     T* __restrict__ out, int SX, int NNY, int NNZ,
-                     int is_low, int is_high) {
-  const long long n_nodes = (long long)SX * NNY * NNZ;
-  const long long node = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (node >= n_nodes) return;
-  const int k = (int)(node % NNZ);
-  const int j = (int)((node / NNZ) % NNY);
-  const int i = (int)(node / ((long long)NNZ * NNY));
+struct Shape;
+template <>
+struct Shape<float> { static constexpr int R = 4, THREADS = 256, PAD = 2, MAX_TZ = 128, BLOCKS_PER_SM = 2, EDGE = 4; };
+template <>
+struct Shape<double> { static constexpr int R = 3, THREADS = 128, PAD = 2, MAX_TZ = 40, BLOCKS_PER_SM = 4, EDGE = 0; };
 
-  const int sx = (i == 0 && is_low) ? 1 : ((i == SX - 1 && is_high) ? 2 : 0);
-  const int sy = (j == 0) ? 1 : ((j == NNY - 1) ? 2 : 0);
-  const int sz = (k == 0) ? 1 : ((k == NNZ - 1) ? 2 : 0);
-  const T* __restrict__ tab = table + (9 * sx + 3 * sy + sz) * 243;
-
-  const int NYp = NNY + 2, NZp = NNZ + 2;
-  const long long comp = (long long)(SX + 2) * NYp * NZp;
-  // Padded position of the node's (-1, -1, -1) neighbour in component 0.
-  const T* __restrict__ u = up + ((long long)i * NYp + j) * NZp + k;
-
-  T f0 = 0, f1 = 0, f2 = 0;
-#pragma unroll
-  for (int ox = 0; ox < 3; ++ox) {
-#pragma unroll
-    for (int oy = 0; oy < 3; ++oy) {
-#pragma unroll
-      for (int oz = 0; oz < 3; ++oz) {
-        const long long p = ((long long)ox * NYp + oy) * NZp + oz;
-        const T a = __ldg(u + p);
-        const T b = __ldg(u + comp + p);
-        const T c = __ldg(u + 2 * comp + p);
-        const T* t = tab + 9 * (9 * ox + 3 * oy + oz);
-        f0 += __ldg(t + 0) * a + __ldg(t + 1) * b + __ldg(t + 2) * c;
-        f1 += __ldg(t + 3) * a + __ldg(t + 4) * b + __ldg(t + 5) * c;
-        f2 += __ldg(t + 6) * a + __ldg(t + 7) * b + __ldg(t + 8) * c;
-      }
+// Slots copied from the one table (no chain) with cp.async, so the copy
+// runs beside the fetch of the block's first planes, in flight with it;
+// the entries of all slots are spread over the block. Face slots hold
+// their own rows (no differences): a face plane's correction forms its
+// difference to the interior row as it goes.
+template <typename T>
+struct TableCoef {
+  static constexpr bool COPIES = true;
+  const T* table;  // [27, 27, 3, 3]
+  __device__ __forceinline__ void fill(T* slots, const int* sig_of, int used,
+                                       bool, int, int, int tid,
+                                       int nthr) const {
+    const unsigned base =
+        static_cast<unsigned>(__cvta_generic_to_shared(slots));
+    for (int i = tid; i < used * kRow; i += nthr) {
+      const int s = i / kRow, e = i - s * kRow;
+      cp_async<T>(base + (unsigned)((s * kSlot + (e / 9 * 3 + e % 3) * 4 +
+                                     e / 3 % 3) * sizeof(T)),
+                  table + sig_of[s] * kRow + e);
     }
+    cp_async_commit();
   }
-  out[node] = f0;
-  out[n_nodes + node] = f1;
-  out[2 * n_nodes + node] = f2;
-}
+};
 
 template <typename T>
-int launch(const T* up, const T* table, T* out, int SX, int NNY, int NNZ,
-           int is_low, int is_high, void* stream) {
-  const long long n_nodes = (long long)SX * NNY * NNZ;
-  if (n_nodes == 0) return (int)cudaSuccess;
-  const unsigned blocks = (unsigned)((n_nodes + kThreads - 1) / kThreads);
-  stencil_sweep_kernel<T><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      up, table, out, SX, NNY, NNZ, is_low, is_high);
-  return (int)cudaGetLastError();
+int launch_stencil(const T* up, const T* table, T* out, int SX, int NNY,
+                   int NNZ, int is_low, int is_high, void* stream) {
+  using S = Shape<T>;
+  return launch<T, S::R, S::EDGE, S::THREADS, S::PAD>(
+      up, TableCoef<T>{table}, out, 1, SX, NNY, NNZ, is_low, is_high,
+      Sizing{S::MAX_TZ, S::BLOCKS_PER_SM}, stream);
 }
 
 }  // namespace
@@ -101,13 +86,15 @@ int launch(const T* up, const T* table, T* out, int SX, int NNY, int NNZ,
 extern "C" int stencil_sweep_f32(const float* up, const float* table,
                                  float* out, int SX, int NNY, int NNZ,
                                  int is_low, int is_high, void* stream) {
-  return launch<float>(up, table, out, SX, NNY, NNZ, is_low, is_high, stream);
+  return launch_stencil<float>(up, table, out, SX, NNY, NNZ, is_low, is_high,
+                               stream);
 }
 
 extern "C" int stencil_sweep_f64(const double* up, const double* table,
                                  double* out, int SX, int NNY, int NNZ,
                                  int is_low, int is_high, void* stream) {
-  return launch<double>(up, table, out, SX, NNY, NNZ, is_low, is_high, stream);
+  return launch_stencil<double>(up, table, out, SX, NNY, NNZ, is_low, is_high,
+                                stream);
 }
 
 extern "C" const char* stencil_sweep_error_string(int code) {

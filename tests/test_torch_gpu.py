@@ -48,6 +48,29 @@ def test_kernel_matches_plain_version(n, kw, flags, dtype):
     assert err <= RTOL[dtype] * float(f_ref.abs().max())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("flags", [(1, 1), (0, 1), (1, 0), (0, 0)])
+@pytest.mark.parametrize("n,sx", [((32, 32, 32), None), ((32, 32, 32), 1),
+                                  ((6, 9, 140), None), ((13, 5, 37), 1)])
+def test_stencil_kernel_tiling(n, sx, flags, dtype):
+    """Shapes that stress the kernel's tiles: the 32^3 grid (35 y and z
+    nodes, which no tile width divides), one x-plane (every plane a face),
+    z over two tiles (141 nodes); random ghosts."""
+    _need_cuda()
+    op = stencil.build_stencil_operator(meshgen.hex_beam(*n), dtype=dtype,
+                                        device="cuda")
+    shape = op.node_shape if sx is None else (sx, *op.node_shape[1:])
+    rng = np.random.default_rng(sum(n) + (sx or 0))
+    up = torch.as_tensor(rng.standard_normal((3, *(k + 2 for k in shape))),
+                         dtype=dtype, device="cuda")
+    f = stencil.stencil_sweep(up, op.table, *flags)
+    ref = stencil.stencil_sweep_reference(up, op.table, *flags)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(f).all())
+    assert float((f - ref).abs().max()) <= RTOL[dtype] * float(
+        ref.abs().max())
+
+
 def test_kernel_refuses_bad_input():
     _need_cuda()
     op = stencil.build_stencil_operator(meshgen.hex_beam(3, 3, 3),

@@ -23,7 +23,8 @@ from stan_tpu_torch.utils import checkpoint as ckpt
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(str(p.relative_to(REPO)) for p in
-                    (REPO / "stan_tpu_torch").rglob("*.py")) + ["chip_smoke.py"]
+                    (REPO / "stan_tpu_torch").rglob("*.py")) + [
+                        "chip_smoke.py", "chip_tune.py"]
 
 
 def _imported_modules(tree):
