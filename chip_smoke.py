@@ -574,7 +574,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="profile one calibration gradient")
+                        help="profile the 70^3 CG loop and one "
+                             "calibration gradient")
     parser.add_argument("--cli", action="store_true",
                         help="run the calibrate command on the 32^3 beam")
     parser.add_argument("--kernels", action="store_true",

@@ -11,8 +11,7 @@ stencil_sweep_reference (the 70^3 tables on [3,73,73,73], one x-plane of
 the 32^3 grid and the 6x9x140 beam, four flag pairs, random ghosts, the
 tolerances of chip_smoke.py) and then times every shape and the committed
 kernel at [3,73,73,73] (the 70^3 solve's shape) from CUDA-graph replays,
-in turns, twice. Ends with one JSON line of the readings; also written to
-chiprun_out/chip_tune.json.
+in turns, twice. Ends with one JSON line of the readings.
 
 --cut (a diagnostic; no checks): start, fetched or filled make every block
 of every shape return at its start, once its first planes have arrived,
@@ -49,7 +48,8 @@ CTYPE = {"f32": "float", "f64": "double"}
 CUTS = {
     "start": ("  constexpr int NP = 2 * R + 2;  // ring slots",
               "  if (SX > 0) return;\n"),
-    "fetched": ("  // Form the slots once per block for the signatures this block meets.",
+    "fetched": ("  // Form the slots once per block for the signatures this "
+                "block meets.",
                 '  asm volatile("cp.async.wait_all;\\n" ::);\n'
                 "  __syncthreads();\n  if (SX > 0) return;\n"),
     "noface": ("        const T* const own = slot_of(i0 + r);",
@@ -188,8 +188,9 @@ def main() -> int:
             op = ops[name.split()[0]]
             table = stencil.pack_tables(op.tables, dtype, "cuda")
             shp = op.node_shape if sx is None else (sx, *op.node_shape[1:])
-            up = torch.as_tensor(rng.standard_normal((3, *(n + 2 for n in shp))),
-                                 dtype=dtype, device="cuda")
+            up = torch.as_tensor(
+                rng.standard_normal((3, *(n + 2 for n in shp))),
+                dtype=dtype, device="cuda")
             for lo, hi in chip_smoke.FLAGS:
                 f = sweep_with(fn, up, table, lo, hi)
                 ref = stencil.stencil_sweep_reference(up, table, lo, hi)
@@ -243,9 +244,6 @@ def main() -> int:
               f"{v['max_rel_err']:.1e}")
     result = {"card": card, "cut": args.cut, "committed": base,
               "variants": variants}
-    out = pathlib.Path("chiprun_out")
-    out.mkdir(exist_ok=True)
-    (out / "chip_tune.json").write_text(json.dumps(result, indent=1))
     print(json.dumps(result))
     return 0
 

@@ -44,9 +44,15 @@ using namespace sweep_tile;
 template <typename T>
 struct Shape;
 template <>
-struct Shape<float> { static constexpr int R = 4, THREADS = 256, PAD = 2, MAX_TZ = 128, BLOCKS_PER_SM = 2, EDGE = 4; };
+struct Shape<float> {
+  static constexpr int R = 4, THREADS = 256, PAD = 2, MAX_TZ = 128,
+                       BLOCKS_PER_SM = 2, EDGE = 4;
+};
 template <>
-struct Shape<double> { static constexpr int R = 3, THREADS = 128, PAD = 2, MAX_TZ = 40, BLOCKS_PER_SM = 4, EDGE = 0; };
+struct Shape<double> {
+  static constexpr int R = 3, THREADS = 128, PAD = 2, MAX_TZ = 40,
+                       BLOCKS_PER_SM = 4, EDGE = 0;
+};
 
 // Slots copied from the one table (no chain) with cp.async, so the copy
 // runs beside the fetch of the block's first planes, in flight with it;

@@ -200,10 +200,11 @@ __device__ __forceinline__ Row3<T> sweep_plane(
 // [q][d][c pad 4] (see above), and where diff and s >= yz_n as that row
 // minus the row of slot s % yz_n (a face x-class's difference to the
 // interior). Coef::COPIES: the fill copies rows with cp.async, never with
-// differences (diff is false), and commits them itself. R: x-planes per group; E: 0, or the
-// planes of the first and the last x chunk (the face chunks), which then
-// do less than the others to make up for their face correction; PAD: row
-// padding of the tile in shared memory (at least 2, the z halo).
+// differences (diff is false), and commits them itself. R: x-planes per
+// group; E: 0, or the planes of the first and the last x chunk (the face
+// chunks), which then do less than the others to make up for their face
+// correction; PAD: row padding of the tile in shared memory (at least 2,
+// the z halo).
 template <typename T, int R, int E, int PAD, class Coef>
 __device__ __forceinline__ void sweep_block(
     const T* __restrict__ up, Coef coef, T* __restrict__ out, int SX,
@@ -234,7 +235,7 @@ __device__ __forceinline__ void sweep_block(
   const T* __restrict__ src = up + 3 * comp * chain;
 
   // This thread's cells of a padded tile plane (at most kMaxPos; see
-  // plan): shared address in ring slot 0 and global address in padded
+  // kMaxPos): shared address in ring slot 0 and global address in padded
   // plane 0, component 0.
   const int rows = min(TY + 2, NYp - y0), cols = min(TZ + 2, NZp - z0);
   const unsigned ring_s = static_cast<unsigned>(__cvta_generic_to_shared(ring));
@@ -362,28 +363,6 @@ sweep_kernel(const T* __restrict__ up, Coef coef, T* __restrict__ out,
                             TZ, nzt, XC, n_slots);
 }
 
-// Launch one instantiation of the kernel with `bytes` of dynamic shared
-// memory; returns a CUDA error code.
-template <typename Kernel, typename... Args>
-int start(Kernel* kernel, dim3 grid, int threads, size_t bytes,
-          void* stream, Args... args) {
-  static size_t allowed = 0;  // per instantiation
-  if (bytes > allowed) {
-    // Above 48 KB only on request; and the largest shared-memory carveout,
-    // so that more than one block fits on an SM.
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(kernel,
-                                 cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 (int)cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return (int)err;
-    allowed = bytes;
-  }
-  kernel<<<grid, threads, bytes, (cudaStream_t)stream>>>(args...);
-  return (int)cudaGetLastError();
-}
-
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // The runtime part of a sweep's launch sizing (host side).
@@ -420,8 +399,8 @@ int launch(const T* up, Coef coef, T* out, int B, int SX, int NNY, int NNZ,
       XC = SX;
       nxc = 1;
     } else {
-      const int n0 = want - 2 < 1 ? 1 : (want - 2 < cdiv(mid, R) ? want - 2
-                                                                 : cdiv(mid, R));
+      const int most = cdiv(mid, R);  // one group per middle chunk
+      const int n0 = want - 2 < 1 ? 1 : (want - 2 < most ? want - 2 : most);
       XC = cdiv(cdiv(mid, n0), R) * R;
       nxc = cdiv(mid, XC) + 2;
     }
@@ -437,11 +416,27 @@ int launch(const T* up, Coef coef, T* out, int B, int SX, int NNY, int NNZ,
   const size_t bytes =
       sizeof(T) * ((size_t)n_slots * kSlot +
                    (size_t)(2 * R + 2) * 3 * (TY + 2) * (TZ + PAD));
+  static size_t allowed = 0;  // per instantiation
+  if (bytes > allowed) {
+    // Above 48 KB only on request; and the largest shared-memory carveout,
+    // so that more than one block fits on an SM.
+    err = cudaFuncSetAttribute(sweep_kernel<T, R, E, THREADS, PAD, Coef>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(sweep_kernel<T, R, E, THREADS, PAD, Coef>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    allowed = bytes;
+  }
   const int threads = cdiv(TY * TZ, 32) * 32;
   const dim3 grid((unsigned)tiles, (unsigned)nxc, (unsigned)B);
-  return start(sweep_kernel<T, R, E, THREADS, PAD, Coef>, grid, threads,
-               bytes, stream, up, coef, out, SX, NNY, NNZ, is_low, is_high, TY,
-               TZ, nzt, XC, n_slots);
+  sweep_kernel<T, R, E, THREADS, PAD, Coef>
+      <<<grid, threads, bytes, (cudaStream_t)stream>>>(
+          up, coef, out, SX, NNY, NNZ, is_low, is_high, TY, TZ, nzt, XC,
+          n_slots);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace sweep_tile
