@@ -47,7 +47,19 @@ Phases, each of which raises on failure:
      acceptance above 0, at least one batched launch per iteration of the
      chain-batched CG loops, no unconverged forward solve at θ_true;
  10. the gradient of the calibration's log posterior on the card in float64
-     against central finite differences, at one θ (log E, ν and load).
+     against central finite differences, at one θ (log E, ν and load);
+ 11. the 24 result fields of the 70^3 solve (post.fields.compute_all, on
+     the card in float64) against the same function on the CPU, to 1e-12
+     of each field's largest magnitude, and the .vtu export of increment 1
+     into a temporary directory (removed after);
+ 12. NUTS on the calibration posterior (run_nuts, 16 chains, max_depth 5,
+     5 warmup + 3 samples, from the HMC phase's θ0): finite samples,
+     acceptance above 0, at least one batched launch per iteration of the
+     chain-batched CG loops, evals_per_sample at most 2^5 - 1;
+ 13. ADVI (10 steps of 8 ELBO draws) and SMC (32 particles, 2 Metropolis
+     steps, 2 stages) on the same posterior: finite results, and rising
+     temperatures for SMC; each with its batched launches and unconverged
+     solves (prior draws of ν near 0.5 may stop at the CG cap).
 
 --kernels runs phases 1-5 only (build, every kernel against its plain
 version, the timings), prints the kernels line with no launch counts (no
@@ -59,11 +71,15 @@ Two measurements run only when asked for:
              one 16-chain gradient of the 32^3 posterior near θ_true, under
              torch.profiler: wall time, (chain-batched) CG iterations, ms
              per iteration, device busy share, device time by kernel,
-             launches per iteration;
+             launches per iteration; before the ADVI phase, three one-step
+             ADVI fits timed in turn and one under torch.profiler (device
+             time by kernel, host time by operator);
   --cli      `python -m stan_tpu_torch.cli calibrate --synthetic --sampler
              hmc --device cuda` on an STdb of the 32^3 beam (needs
              protobuf), at the CLI's default tolerance and at 1e-8 (a
-             short run), printing the CLI's counts of unconverged solves.
+             short run), printing the CLI's counts of unconverged solves;
+             then `cli calibrate --sampler nuts` (short), `cli solve` and
+             `cli export` on the same STdb.
 
 Prints a JSON line of kernel facts and, last, one JSON line naming the
 device; before those, it checks that no module of stan_tpu was loaded.
@@ -90,6 +106,12 @@ CHAINS = 16
 N_LEAPFROG = 8
 N_WARMUP = 10
 N_SAMPLES = 5
+NUTS_DEPTH, NUTS_WARMUP, NUTS_SAMPLES = 5, 5, 3
+VI_STEPS, VI_DRAWS = 10, 8
+SMC_PARTICLES, SMC_MCMC, SMC_STAGES = 32, 2, 2
+# A float64 field pass on the card and on the CPU: the same operations,
+# each rounded once, in other libraries and summation orders.
+FIELD_RTOL = 1e-12
 THETA_TRUE = np.array([np.log(190000.0), 0.28, 0.0])
 SEED = 0
 # The kernel and the plain version sum the same products in other orders.
@@ -442,6 +464,157 @@ def fd_gradient_check(model, obs, card) -> None:
             f"float64 solves of the gradient check unconverged: {st}")
 
 
+def fields_phase(model, card) -> None:
+    """The 24 result fields of the stored 70^3 solve on the card in float64
+    against the CPU's, then the .vtu export of increment 1 (removed
+    after)."""
+    import os
+    import tempfile
+
+    from stan_tpu_torch.post import fields
+
+    t0 = time.perf_counter()
+    got = fields.compute_all(model, 1, device="cuda")
+    torch.cuda.synchronize()
+    all_s = time.perf_counter() - t0
+    # The device pass alone, on inputs already on the card (CUDA events).
+    on = {k: torch.as_tensor(getattr(model, k)[1], dtype=torch.float64,
+                             device="cuda") for k in ("disp", "stress",
+                                                      "strain")}
+    conn = torch.as_tensor(model.conn, dtype=torch.int64, device="cuda")
+
+    def device_pass():
+        en = fields.elemnode_fields(on["disp"], conn, on["stress"],
+                                    on["strain"])
+        fields.cell_fields(en)
+        fields.point_fields(en, conn, model.nnode)
+
+    pass_ms = time_ms(device_pass, 5)
+    t0 = time.perf_counter()
+    ref = fields.compute_all(model, 1, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    require(list(got) == list(ref) and len(got) == 96, "field names differ")
+    worst = 0.0
+    for name, want in ref.items():
+        scale = max(float(np.abs(want).max()), 1e-300)
+        gap = float(np.abs(got[name] - want).max()) / scale
+        require(np.isfinite(got[name]).all(), f"{name}: non-finite")
+        require(gap <= FIELD_RTOL, f"{name}: card vs CPU gap {gap} of max")
+        worst = max(worst, gap)
+    print(f"[{card}] fields {N}^3 ({model.nelem} elements, {model.nnode} "
+          f"nodes, 96 arrays): compute_all on the card {all_s:.4f} s "
+          f"(host clock, synced; copies in and out included), device pass "
+          f"{pass_ms:.3f} ms (CUDA events); the CPU's {cpu_s:.3f} s; "
+          f"largest gap card vs CPU {worst:.2e} of the field's max")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = fields.export_vtu(model, f"{tmp}/beam{N}", increments=[1],
+                                  device="cuda")
+        write_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(p) for p in paths)
+        require(len(paths) == 1 and size > 0, f"export wrote {paths}")
+    print(f"[{card}] export_vtu {N}^3 increment 1: {write_s:.3f} s host "
+          f"(fields on the card + binary .vtu write), {size} bytes")
+
+
+def _report_solves(label, st, card) -> None:
+    print(f"[{card}] {label} solves: {st['forward_solves']} forward "
+          f"({st['forward_unconverged']} unconverged, "
+          f"{st['forward_loop_iters']} batched loop iterations), "
+          f"{st['adjoint_solves']} adjoint ({st['adjoint_unconverged']} "
+          f"unconverged, {st['adjoint_loop_iters']} batched loop "
+          f"iterations)")
+
+
+def nuts_phase(prob, theta0, card) -> tuple:
+    """run_nuts on the calibration posterior; returns the launches of
+    (theta_sweep, theta_sweep_batched) in this phase."""
+    from stan_tpu_torch.fem import stencil
+    from stan_tpu_torch.infer import nuts
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out = nuts.run_nuts(prob.log_posterior, theta0, 13,
+                        max_depth=NUTS_DEPTH, n_warmup=NUTS_WARMUP,
+                        n_samples=NUTS_SAMPLES, init_step=0.02,
+                        solve_stats=prob.fwd.stats)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = (stencil.theta_launches, stencil.theta_batched_launches)
+    st = out.solve_stats
+    run_s = out.warmup_seconds + sum(out.chunk_seconds)
+    sps = CHAINS * sum(out.chunk_sizes) / sum(out.chunk_seconds)
+    loop_iters = st["forward_loop_iters"] + st["adjoint_loop_iters"]
+    print(f"[{card}] NUTS {G}^3, {CHAINS} chains, max_depth {NUTS_DEPTH}, "
+          f"{NUTS_WARMUP} warmup + {NUTS_SAMPLES} samples: {wall_s:.2f} s "
+          f"in all, warmup {out.warmup_seconds:.2f} s, sampling "
+          f"{sum(out.chunk_seconds):.2f} s; samples/s (sampling phase, all "
+          f"chains) {sps:.3f}")
+    print(f"[{card}] NUTS evals_per_sample per chain "
+          f"{np.round(out.evals_per_sample, 2).tolist()} (mean "
+          f"{float(np.mean(out.evals_per_sample)):.2f}); gradient "
+          f"evaluations (all {CHAINS} chains each) {out.grad_evals}, "
+          f"{run_s / out.grad_evals:.4f} s each; acceptance "
+          f"{float(np.mean(out.accept_rate)):.3f}; step size "
+          f"{float(np.mean(out.step_size)):.4g}")
+    _report_solves("NUTS", st, card)
+    print(f"[{card}] NUTS kernel launches: theta_sweep_batched "
+          f"{launches[1]}, theta_sweep {launches[0]}")
+    require(out.samples.shape == (CHAINS, NUTS_SAMPLES, 3)
+            and np.isfinite(out.samples).all(), "NUTS samples not finite")
+    require(float(np.mean(out.accept_rate)) > 0.0, "NUTS acceptance 0")
+    require(launches[1] >= loop_iters,
+            f"NUTS: {launches[1]} batched launches < {loop_iters} "
+            f"iterations of the chain-batched CG loops")
+    require((out.evals_per_sample <= 2 ** NUTS_DEPTH - 1).all(),
+            f"NUTS evals_per_sample {out.evals_per_sample}")
+    return launches
+
+
+def vi_smc_phase(prob, theta0, card) -> tuple:
+    """ADVI and SMC on the calibration posterior, short; returns the
+    launches of (theta_sweep, theta_sweep_batched) in this phase."""
+    from stan_tpu_torch.fem import stencil
+    from stan_tpu_torch.infer import smc, vi
+
+    reset_launches()
+    st0 = prob.fwd.stats.as_dict()
+    t0 = time.perf_counter()
+    res = vi.run_advi(prob.log_posterior, theta0[0], 17, n_steps=VI_STEPS,
+                      n_elbo_samples=VI_DRAWS)
+    torch.cuda.synchronize()
+    vi_s = time.perf_counter() - t0
+    vi_launches = stencil.theta_batched_launches
+    print(f"[{card}] ADVI {G}^3, {VI_STEPS} steps of {VI_DRAWS} draws: "
+          f"{vi_s:.2f} s; mu {np.round(res.mu, 4).tolist()}, sigma "
+          f"{np.round(res.sigma, 4).tolist()}, last ELBO "
+          f"{float(res.elbo_trace[-1]):.6g}; theta_sweep_batched "
+          f"{vi_launches}")
+    _report_solves("ADVI", prob.fwd.stats.since(st0), card)
+    require(np.isfinite(res.mu).all() and np.isfinite(res.sigma).all()
+            and np.isfinite(res.elbo_trace).all(), "ADVI not finite")
+
+    st0 = prob.fwd.stats.as_dict()
+    t0 = time.perf_counter()
+    out = smc.run_smc(prob.log_prior, prob.log_likelihood, prob.sample_prior,
+                      19, n_particles=SMC_PARTICLES, n_mcmc=SMC_MCMC,
+                      max_stages=SMC_STAGES, device="cuda")
+    torch.cuda.synchronize()
+    smc_s = time.perf_counter() - t0
+    smc_launches = stencil.theta_batched_launches - vi_launches
+    print(f"[{card}] SMC {G}^3, {SMC_PARTICLES} particles, {SMC_MCMC} "
+          f"Metropolis steps, at most {SMC_STAGES} stages: {smc_s:.2f} s; "
+          f"temperatures {np.round(out.temperatures, 6).tolist()}, "
+          f"acceptance {np.round(out.acceptance, 3).tolist()}; "
+          f"theta_sweep_batched {smc_launches}")
+    _report_solves("SMC", prob.fwd.stats.since(st0), card)
+    require(np.isfinite(out.particles).all()
+            and np.isfinite(out.log_evidence), "SMC not finite")
+    require((np.diff(out.temperatures) > 0).all(),
+            f"SMC temperatures {out.temperatures} do not rise")
+    return stencil.theta_launches, stencil.theta_batched_launches
+
+
 def profile_gradient(prob, card, top: int = 10) -> None:
     """One 16-chain gradient near θ_true: its wall time unprofiled, then the
     device time of the same gradient under torch.profiler."""
@@ -479,6 +652,53 @@ def profile_gradient(prob, card, top: int = 10) -> None:
         print(f"[{card}]   {e.self_device_time_total / busy_us:6.1%} "
               f"{e.count:7d} x {e.self_device_time_total / e.count:8.2f} us  "
               f"{e.key[:90]}")
+
+
+def profile_advi(prob, theta0, card, top: int = 8) -> None:
+    """ADVI's cost per step: three one-step fits (VI_DRAWS draws each) in
+    turn, each with its wall time and batched CG iterations, then one more
+    under torch.profiler: device busy time, the device kernels and the host
+    operators that take the most time. Run before the ADVI phase, so the
+    first fit pays what the process pays once for ADVI."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from stan_tpu_torch.infer import vi
+
+    def fit():
+        vi.run_advi(prob.log_posterior, theta0[0], 17, n_steps=1,
+                    n_elbo_samples=VI_DRAWS)
+
+    for i in range(3):
+        st0 = prob.fwd.stats.as_dict()
+        wall_s = wall(fit)
+        st1 = prob.fwd.stats.as_dict()
+        loop = sum(st1[k] - st0[k]
+                   for k in ("forward_loop_iters", "adjoint_loop_iters"))
+        print(f"[{card}] profile, ADVI one-step fit {i + 1} of 3: "
+              f"{wall_s:.4f} s, {loop} batched CG iterations, "
+              f"{wall_s / loop * 1e3:.4f} ms per iteration")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fit()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in dev)
+    host = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    host_us = sum(e.self_cpu_time_total for e in host)
+    print(f"[{card}] profile, ADVI one-step fit under the profiler: device "
+          f"busy {busy_us / 1e6:.4f} s, host operators {host_us / 1e6:.4f} s "
+          f"(self time)")
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"[{card}]   device {e.self_device_time_total / busy_us:6.1%} "
+              f"{e.count:7d} x {e.self_device_time_total / e.count:8.2f} us  "
+              f"{e.key[:80]}")
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:top]:
+        print(f"[{card}]   host {e.self_cpu_time_total / host_us:6.1%} "
+              f"{e.count:7d} x {e.self_cpu_time_total / e.count:8.2f} us  "
+              f"{e.key[:80]}")
 
 
 def profile_linear(op, rhs, diag, card, iters: int = 100, top: int = 6
@@ -539,6 +759,35 @@ def cli_calibration(card) -> None:
             print(f"[{card}] cli calibrate: exit code {rc}, "
                   f"{time.perf_counter() - t0:.2f} s")
             require(rc == 0, f"cli calibrate {extra}: exit code {rc}")
+
+
+def cli_nuts_export(card) -> None:
+    """`cli calibrate --sampler nuts` (short), then `cli solve` and `cli
+    export` on an STdb of the 32^3 beam."""
+    import os
+    import tempfile
+
+    from stan_tpu_torch.core import meshgen
+    from stan_tpu_torch.io import stdb
+    from stan_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/beam{G}.STdb"
+        stdb.write(meshgen.hex_beam(G, G, G), path)
+        for argv in (["calibrate", path, "--synthetic", "--sampler", "nuts",
+                      "--chains", str(CHAINS), "--warmup", "2", "--samples",
+                      "4"],
+                     ["solve", path],
+                     ["export", path, f"{tmp}/beam{G}"]):
+            argv = [*argv, "--device", "cuda"]
+            print(f"[{card}] python -m stan_tpu_torch.cli {' '.join(argv)}")
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            print(f"[{card}] cli {argv[0]}: exit code {rc}, "
+                  f"{time.perf_counter() - t0:.2f} s")
+            require(rc == 0, f"cli {argv[0]}: exit code {rc}")
+        vtus = [f for f in os.listdir(tmp) if f.endswith(".vtu")]
+        require(len(vtus) == 2, f"cli export wrote {vtus}")
 
 
 def device() -> dict:
@@ -868,10 +1117,20 @@ def main() -> int:
             f"{true_stats['forward_loop_iters']} iterations at θ_true")
 
     fd_gradient_check(cal_model, (obs_nodes, obs_dirs, y, sigma), card)
+
+    # -- fields and export of the 70^3 solve; NUTS, ADVI, SMC at 32^3 -----
+    fields_phase(model, card)
+    for phase in (nuts_phase, vi_smc_phase):
+        if args.profile and phase is vi_smc_phase:
+            profile_advi(prob, theta0, card)
+        single, batched = phase(prob, theta0, card)
+        theta_launches += single
+        batched_launches += batched
     if args.profile:
         profile_gradient(prob, card)
     if args.cli:
         cli_calibration(card)
+        cli_nuts_export(card)
 
     stray = sorted(m for m in sys.modules if m.split(".")[0] == "stan_tpu")
     require(not stray, f"the port loaded modules of stan_tpu: {stray}")

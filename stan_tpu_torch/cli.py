@@ -1,26 +1,44 @@
-"""Command-line interface of the port: linear static solve and calibration.
+"""Command-line interface of the port.
 
-``solve`` mirrors ``python -m stan_tpu.cli solve`` for the linear branch:
-read the STdb, apply the TOML config and the flag overrides, validate,
-solve, print iterations, residual, operator and certified residual, write
-the STdb. Exit code 0 if the solve converged, 1 if not, 2 if the model is
-invalid.
+Port of stan_tpu/cli.py on one device:
 
-``calibrate`` mirrors ``python -m stan_tpu.cli calibrate`` for the HMC
-sampler on one device: observations from the STdb's stored displacements
-(or, with --synthetic, from a solve plus noise), the posterior of (E, ν),
-chain-batched HMC, the posterior summary and the count of CG solves that
-stopped unconverged. NUTS, VI and SMC are not ported yet.
+``solve`` mirrors the reference's linear branch: read the STdb, apply the
+TOML config and the flag overrides, validate, solve, print iterations,
+residual, operator and certified residual, write the STdb. Exit code 0 if
+the solve converged, 1 if not, 2 if the model is invalid.
+
+``calibrate`` infers (E, ν) from the STdb's stored displacements (or, with
+--synthetic, from a solve plus noise) with the FEM solve as the forward
+model: NUTS (the config's default), HMC, mean-field ADVI or adaptive SMC,
+all chain- or particle-batched on one device. It prints the posterior
+summary and the count of CG solves that stopped unconverged.
+
+``import``, ``export``, ``strip-results`` and ``info`` are the reference's
+data pipeline: Nastran .bdf to STdb, results to ParaView .vtu (fields
+computed on --device), removing stored results, a summary.
+
+``--log-json`` appends a structured record of a solve or calibration
+(utils/runlog.py).
 
 Usage:
   python -m stan_tpu_torch.cli solve model.STdb [--out other.STdb]
                                      [--solver CG] [--tol 1e-6] [--maxiter N]
-                                     [--config run.toml] [--device cuda]
+                                     [--config run.toml] [--log-json run.jsonl]
+                                     [--device cuda]
   python -m stan_tpu_torch.cli calibrate model.STdb [--synthetic]
-                                     [--sampler hmc] [--chains N]
+                                     [--sampler nuts|hmc|vi|smc] [--chains N]
                                      [--warmup N] [--samples N] [--n-obs 16]
                                      [--cg-tol 1e-6] [--config run.toml]
-                                     [--device cuda]
+                                     [--log-json run.jsonl] [--device cuda]
+  python -m stan_tpu_torch.cli import mesh.bdf model.STdb [--E 210000
+                                     --poisson 0.3] [--strict]
+  python -m stan_tpu_torch.cli export model.STdb out_prefix [--ascii]
+                                     [--undeformed] [--device cuda]
+  python -m stan_tpu_torch.cli strip-results model.STdb [--out other.STdb]
+  python -m stan_tpu_torch.cli info model.STdb
+
+io.stdb needs protobuf; it is imported inside the commands only, never
+with the package, so the library runs where protobuf is not installed.
 """
 
 from __future__ import annotations
@@ -37,11 +55,10 @@ BANNER = r"""
 
 
 def _cmd_solve(args) -> int:
-    # io.stdb needs protobuf; it is imported here only, never with the
-    # package, so the solver runs where protobuf is not installed.
     from stan_tpu_torch.core import validate
     from stan_tpu_torch.io import stdb
     from stan_tpu_torch.utils import config as config_mod
+    from stan_tpu_torch.utils import runlog
     from stan_tpu_torch.analysis.linear import solve_linear_statics
     from stan_tpu_torch.utils.timing import PhaseTimer
 
@@ -80,16 +97,23 @@ def _cmd_solve(args) -> int:
               f"({res.refine_cycles} refinement cycles, "
               f"{res.refine_iters} extra CG iterations)")
 
+    out = args.out or args.path
     with timer.phase("Write database"):
-        stdb.write(model, args.out or args.path)
+        stdb.write(model, out)
     print(timer.summary())
+    if args.log_json:
+        runlog.append(args.log_json, runlog.make_record(
+            "solve", model=model, timer=timer, iters=res.iters,
+            residual=res.residual, converged=bool(res.converged),
+            path=args.path, out=out, operator=res.operator,
+            n_domain=res.n_domain, true_residual=res.true_residual,
+            refine_cycles=res.refine_cycles, device=args.device))
     return 0 if res.converged else 1
 
 
 def _cmd_calibrate(args) -> int:
     """Bayesian calibration of (E, ν) against observed displacements, with
-    the FEM solve as the forward model and chain-batched HMC on one
-    device."""
+    the FEM solve as the forward model, on one device."""
     import time
 
     import numpy as np
@@ -98,8 +122,8 @@ def _cmd_calibrate(args) -> int:
     from stan_tpu_torch.core import validate
     from stan_tpu_torch.io import stdb
     from stan_tpu_torch.utils import config as config_mod
+    from stan_tpu_torch.utils import runlog
     from stan_tpu_torch.infer import calibrate as cal_mod
-    from stan_tpu_torch.infer import hmc as hmc_mod
     from stan_tpu_torch.utils.timing import PhaseTimer
 
     print(BANNER)
@@ -114,10 +138,6 @@ def _cmd_calibrate(args) -> int:
         inf.warmup = args.warmup
     if args.samples is not None:
         inf.samples = args.samples
-    if inf.sampler != "hmc":
-        raise NotImplementedError(
-            f"sampler {inf.sampler!r} is not ported yet: ROADMAP.md queue 1, "
-            f"item 7 (NUTS, VI, SMC); use --sampler hmc")
     if cfg.sharding.chains > 1 or cfg.sharding.domain > 1:
         raise NotImplementedError(
             "a [sharding] device mesh is not ported yet: ROADMAP.md queue 1, "
@@ -171,27 +191,54 @@ def _cmd_calibrate(args) -> int:
         np.asarray([prob.mu_logE, 0.0, 0.0])
         + rng_init.normal(0.0, 1.0, (inf.chains, 3)) * init_scale,
         device=prob.fwd.device)
+    rhat = ess = None
+    stats0 = prob.fwd.stats.as_dict()
     t0 = time.perf_counter()
     with timer.phase(f"Sample ({inf.sampler})"):
-        out = hmc_mod.run_hmc(prob.log_posterior, theta0, inf.seed,
-                              n_warmup=inf.warmup, n_samples=inf.samples,
-                              solve_stats=prob.fwd.stats)
-    wall = time.perf_counter() - t0
+        if inf.sampler in ("hmc", "nuts"):
+            from stan_tpu_torch.infer import hmc as hmc_mod
+            from stan_tpu_torch.infer import nuts as nuts_mod
 
-    cons = cal_mod.CalibrationProblem.constrain(out.samples)
+            run = hmc_mod.run_hmc if inf.sampler == "hmc" else \
+                nuts_mod.run_nuts
+            out = run(prob.log_posterior, theta0, inf.seed,
+                      n_warmup=inf.warmup, n_samples=inf.samples,
+                      solve_stats=prob.fwd.stats)
+            samples = out.samples  # [chains, n, 3]
+            accept = float(np.mean(out.accept_rate))
+            rhat, ess = np.max(out.rhat), np.min(out.ess)
+        elif inf.sampler == "vi":
+            from stan_tpu_torch.infer import vi as vi_mod
+
+            out = vi_mod.run_advi(prob.log_posterior, theta0[0], inf.seed,
+                                  n_steps=inf.samples)
+            samples = out.sample(inf.seed, inf.chains * 256)[None]
+            accept = float("nan")
+        else:  # smc: prior/likelihood split of the same posterior
+            from stan_tpu_torch.infer import smc as smc_mod
+
+            out = smc_mod.run_smc(prob.log_prior, prob.log_likelihood,
+                                  prob.sample_prior, inf.seed,
+                                  n_particles=max(inf.chains * 64, 256),
+                                  device=prob.fwd.device)
+            samples = out.particles[None]
+            accept = float(np.mean(out.acceptance))
+    wall = time.perf_counter() - t0
+    st = prob.fwd.stats.since(stats0)
+
+    cons = cal_mod.CalibrationProblem.constrain(np.asarray(samples))
     flat = cons.reshape(-1, cons.shape[-1])
     print("  ==================   POSTERIOR   =========================")
     for k, name in enumerate(("E", "nu", "load_scale")):
         q = np.percentile(flat[:, k], [5, 50, 95])
         print(f"   {name:>10s}: median {q[1]:.6g}   90% CI "
               f"[{q[0]:.6g}, {q[2]:.6g}]")
-    n_draws = int(np.prod(out.samples.shape[:-1]))
+    n_draws = int(np.prod(np.asarray(samples).shape[:-1]))
     sps = n_draws / wall if wall > 0 else float("nan")
     print(f"   draws: {n_draws}  wall: {wall:.1f}s  samples/s: {sps:.1f}  "
-          f"accept: {float(np.mean(out.accept_rate)):.3f}")
-    print(f"   R-hat: {np.max(out.rhat):.4f} (max over params)  min ESS: "
-          f"{np.min(out.ess):.0f}")
-    st = out.solve_stats
+          f"accept: {accept:.3f}")
+    if rhat is not None:
+        print(f"   R-hat: {rhat:.4f} (max over params)  min ESS: {ess:.0f}")
     print(f"   CG solves: {st['forward_solves']} forward "
           f"({st['forward_iters'] / max(st['forward_solves'], 1):.1f} "
           f"iterations each, {st['forward_unconverged']} unconverged), "
@@ -200,6 +247,95 @@ def _cmd_calibrate(args) -> int:
           f"iterations each, {st['adjoint_unconverged']} unconverged) "
           f"at cg_tol {args.cg_tol:g}")
     print(timer.summary())
+    if args.log_json:
+        runlog.append(args.log_json, runlog.make_record(
+            "calibrate", model=model, timer=timer,
+            sampler=inf.sampler, chains=inf.chains, draws=n_draws,
+            samples_per_s=sps, accept=accept, path=args.path,
+            mesh=None, n_devices=torch.cuda.device_count(),
+            rhat=float(rhat) if rhat is not None else None,
+            device=args.device, solve_stats=st))
+    return 0
+
+
+def _cmd_import(args) -> int:
+    import numpy as np
+
+    from stan_tpu_torch.core.model import Material
+    from stan_tpu_torch.io import nastran, stdb
+
+    model = nastran.read_bdf(args.bdf, strict=args.strict)
+    if model.import_errors:
+        print(f"  WARNING: {len(model.import_errors)} cards failed to parse")
+        for line in model.import_errors[:10]:
+            print(f"    {line[:70]}")
+    # Default material assignment so the file is immediately solvable once
+    # BCs are added (the reference requires assigning materials in the GUI
+    # before running, MainWindow.xaml.cs:474-487).
+    if args.E is not None:
+        model.materials[1] = Material(
+            id=1, name="default", E=args.E, poisson=args.poisson
+        )
+        model.elem_mat = np.ones(model.nelem, dtype=np.int64)
+        for info in model.part_info.values():
+            info.mat_id = 1
+    stdb.write(model, args.out)
+    print(model.summary())
+    print(f"  Wrote {args.out}")
+    return 0
+
+
+def _cmd_export(args) -> int:
+    from stan_tpu_torch.io import stdb
+    from stan_tpu_torch.post import fields
+
+    model = stdb.read(args.path)
+    if model.disp is None:
+        print("  ERROR: no results in database (run solve first)")
+        return 2
+    paths = fields.export_vtu(
+        model, args.prefix, binary=not args.ascii,
+        deformed=not args.undeformed, device=args.device,
+    )
+    for p in paths:
+        print(f"  Wrote {p}")
+    return 0
+
+
+def _cmd_strip_results(args) -> int:
+    """Remove stored results from an STdb (the reference GUI's
+    Remove Results action, MainWindow.xaml.cs:731-763), shrinking the file
+    back to pre-solve size."""
+    import os
+
+    from stan_tpu_torch.io import stdb
+
+    model = stdb.read(args.path)
+    if model.disp is None:
+        print("  No results in database; nothing to strip")
+        return 0
+    before = os.path.getsize(args.path)
+    model.strip_results()
+    out = args.out or args.path
+    stdb.write(model, out)
+    after = os.path.getsize(out)
+    print(f"  Stripped results: {before} -> {after} bytes ({out})")
+    return 0
+
+
+def _cmd_info(args) -> int:
+    from stan_tpu_torch.io import stdb
+
+    model = stdb.read(args.path)
+    print(model.summary())
+    a = model.analysis
+    print(f"   Analysis: {a.type}, solver {a.lin_solver}, "
+          f"tol {a.lin_solver_tolerance}, maxiter {a.lin_solver_maxiter}")
+    print(f"   Materials: {len(model.materials)}, BCs: {len(model.bcs)}, "
+          f"parts: {len(model.part_info)}")
+    if model.disp is not None:
+        print(f"   Results: {model.disp.shape[0]} increments "
+              f"(result_step_no={a.result_step_no})")
     return 0
 
 
@@ -216,6 +352,7 @@ def main(argv=None) -> int:
     p.add_argument("--tol", type=float)
     p.add_argument("--maxiter", type=int)
     p.add_argument("--config", help="TOML run config (utils/config.py)")
+    p.add_argument("--log-json", help="append a structured run record here")
     p.add_argument("--device", default="cuda",
                    help="torch device to solve on (default: cuda)")
     p.set_defaults(fn=_cmd_solve)
@@ -225,7 +362,7 @@ def main(argv=None) -> int:
         help="Bayesian calibration of (E, nu) from displacement results")
     p.add_argument("path")
     p.add_argument("--sampler", choices=["hmc", "nuts", "vi", "smc"],
-                   help="only hmc is ported; the others raise")
+                   help="default: the config's (nuts)")
     p.add_argument("--chains", type=int)
     p.add_argument("--warmup", type=int)
     p.add_argument("--samples", type=int)
@@ -238,9 +375,40 @@ def main(argv=None) -> int:
                         "solves (default 1e-6: the port samples in float32, "
                         "where CG cannot be relied on to reach 1e-8)")
     p.add_argument("--config", help="TOML run config (utils/config.py)")
+    p.add_argument("--log-json", help="append a structured run record here")
     p.add_argument("--device", default="cuda",
                    help="torch device to sample on (default: cuda)")
     p.set_defaults(fn=_cmd_calibrate)
+
+    p = sub.add_parser("import", help="convert a Nastran .bdf mesh to STdb")
+    p.add_argument("bdf")
+    p.add_argument("out")
+    p.add_argument("--E", type=float, help="assign a default material E")
+    p.add_argument("--poisson", type=float, default=0.3)
+    p.add_argument("--strict", action="store_true",
+                   help="reference whitelist (CHEXA only)")
+    p.set_defaults(fn=_cmd_import)
+
+    p = sub.add_parser("export", help="export results to ParaView .vtu")
+    p.add_argument("path")
+    p.add_argument("prefix")
+    p.add_argument("--ascii", action="store_true")
+    p.add_argument("--undeformed", action="store_true")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to compute the fields on "
+                        "(default: cuda)")
+    p.set_defaults(fn=_cmd_export)
+
+    p = sub.add_parser(
+        "strip-results",
+        help="remove stored results from an STdb (shrinks the file)")
+    p.add_argument("path")
+    p.add_argument("--out", help="write here instead of overwriting")
+    p.set_defaults(fn=_cmd_strip_results)
+
+    p = sub.add_parser("info", help="print database summary")
+    p.add_argument("path")
+    p.set_defaults(fn=_cmd_info)
 
     args = parser.parse_args(argv)
     return args.fn(args)

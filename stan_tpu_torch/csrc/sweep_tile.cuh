@@ -49,6 +49,7 @@ constexpr int kMaxPos = 4;
 constexpr int kRow = 27 * 9;         // one signature's row: [q][c][d]
 constexpr int kSlot = 27 * 3 * 4;    // one signature's slot: [q][d][c pad 4]
 constexpr int kTable = 27 * 27 * 9;  // one packed table set
+constexpr int kMaxDevices = 64;      // device ordinals launch() keeps state for
 
 // Padding of a tile row in shared memory that keeps it congruent to TZ
 // modulo one 128-byte row of banks, so the lanes of a warp, which run along
@@ -416,8 +417,12 @@ int launch(const T* up, Coef coef, T* out, int B, int SX, int NNY, int NNZ,
   const size_t bytes =
       sizeof(T) * ((size_t)n_slots * kSlot +
                    (size_t)(2 * R + 2) * 3 * (TY + 2) * (TZ + PAD));
-  static size_t allowed = 0;  // per instantiation
-  if (bytes > allowed) {
+  // The runtime applies a function attribute to the function as loaded on
+  // the current device, so the opt-in is kept per device ordinal (and per
+  // instantiation): a second card in the same process gets its own.
+  static size_t allowed[kMaxDevices] = {};
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (bytes > allowed[dev]) {
     // Above 48 KB only on request; and the largest shared-memory carveout,
     // so that more than one block fits on an SM.
     err = cudaFuncSetAttribute(sweep_kernel<T, R, E, THREADS, PAD, Coef>,
@@ -428,7 +433,7 @@ int launch(const T* up, Coef coef, T* out, int B, int SX, int NNY, int NNZ,
                                  cudaFuncAttributePreferredSharedMemoryCarveout,
                                  (int)cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return (int)err;
-    allowed = bytes;
+    allowed[dev] = bytes;
   }
   const int threads = cdiv(TY * TZ, 32) * 32;
   const dim3 grid((unsigned)tiles, (unsigned)nxc, (unsigned)B);

@@ -66,13 +66,40 @@ class CalibrationProblem:
         pred = self.u_obs(torch.stack([log_E, nu, log_s], dim=1))
         resid = (self.y - pred) / self.sigma_obs
         loglike = -0.5 * torch.sum(resid ** 2, dim=1)
+        return loglike + self._log_prior(theta, self.infer_load)
 
-        lp = -0.5 * ((log_E - self.mu_logE) / self.sigma_logE) ** 2
+    def _log_prior(self, theta: torch.Tensor, load: bool) -> torch.Tensor:
+        lp = -0.5 * ((theta[:, 0] - self.mu_logE) / self.sigma_logE) ** 2
         # logit-uniform Jacobian: log dν/dt = log 0.5 + log σ(t) + log σ(-t)
-        lp = lp + F.logsigmoid(t_nu) + F.logsigmoid(-t_nu)
-        if self.infer_load:
-            lp = lp - 0.5 * (log_s / self.sigma_logs) ** 2
-        return loglike + lp
+        lp = lp + F.logsigmoid(theta[:, 1]) + F.logsigmoid(-theta[:, 1])
+        if load:
+            lp = lp - 0.5 * (theta[:, 2] / self.sigma_logs) ** 2
+        return lp
+
+    # SMC's split of the posterior (the reference CLI's, stan_tpu/cli.py:
+    # 256-272): log_prior + log_likelihood = log_posterior. The prior always
+    # holds log s's normal, as the reference's does, also when the load is
+    # fixed and log_posterior has no log s term.
+
+    def log_prior(self, theta: torch.Tensor) -> torch.Tensor:
+        """Log prior [N] of θ [N, 3] (unconstrained)."""
+        return self._log_prior(theta, True)
+
+    def log_likelihood(self, theta: torch.Tensor) -> torch.Tensor:
+        """log_posterior - log_prior, [N]."""
+        return self.log_posterior(theta) - self.log_prior(theta)
+
+    def sample_prior(self, gen: torch.Generator, n: int) -> torch.Tensor:
+        """n prior draws [n, 3] in float64 on the forward's device, from
+        gen: log E normal, logit(2ν) standard logistic, log s normal."""
+        like = dict(generator=gen, dtype=torch.float64,
+                    device=self.fwd.device)
+        u = torch.rand(n, **like)
+        return torch.stack([
+            self.mu_logE + self.sigma_logE * torch.randn(n, **like),
+            torch.log(u) - torch.log1p(-u),
+            self.sigma_logs * torch.randn(n, **like),
+        ], dim=1)
 
     @staticmethod
     def constrain(samples: np.ndarray) -> np.ndarray:

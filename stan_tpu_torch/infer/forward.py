@@ -86,6 +86,10 @@ class SolveStats:
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
 
+    def since(self, before: dict) -> dict:
+        """The counts added since ``before`` (an earlier ``as_dict()``)."""
+        return {k: v - before[k] for k, v in self.as_dict().items()}
+
 
 @dataclasses.dataclass(frozen=True)
 class StencilForwardProblem:

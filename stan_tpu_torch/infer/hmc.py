@@ -204,10 +204,9 @@ class HMCResult:
     ess: np.ndarray  # [D]
     # Gradient evaluations per post-warmup draw per chain (n_leapfrog).
     evals_per_sample: Optional[np.ndarray] = None
-    # Wall seconds of the warmup (and of each warmup segment) and of each
-    # sampling chunk, each ending in a device sync.
+    # Wall seconds of the warmup and of each sampling chunk, each ending in
+    # a device sync.
     warmup_seconds: float = 0.0
-    warmup_segment_seconds: Optional[list] = None
     chunk_seconds: Optional[list] = None
     chunk_sizes: Optional[list] = None
     # Chain-batched evaluations of the target's value and gradient made by
@@ -234,12 +233,6 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _solve_delta(stats, before: Optional[dict]) -> Optional[dict]:
-    if stats is None:
-        return None
-    return {k: v - before[k] for k, v in stats.as_dict().items()}
-
-
 def run_chains(
     logp_grad_b,
     transition,
@@ -253,7 +246,6 @@ def run_chains(
     checkpoint_path: Optional[str] = None,
     checkpoint_every: int = 0,
     kernel_id: str = "",
-    warmup_chunk: int = 0,
     solve_stats=None,
 ) -> HMCResult:
     """Shared chunked, checkpointed loop for batched MCMC chains.
@@ -262,19 +254,16 @@ def run_chains(
     accept_prob [C], n_grad_evals [C])`` is the chain-batched kernel;
     ``logp_grad_b: [C, D] -> ([C], [C, D])`` the batched target gradient,
     which run_chains hands to the kernel so that it counts every
-    evaluation (grad_evals). The state stays on
-    theta0's device and in its dtype.
+    evaluation (grad_evals). The state stays on theta0's device and in its
+    dtype.
 
-    ``warmup_chunk`` > 0 splits the warmup into segments of that many
-    transitions, each timed to a device sync (warmup_segment_seconds); the
-    draws do not depend on it. Draws come in chunks of
-    ``checkpoint_every`` samples (default: 10 chunks with a checkpoint,
-    else one); with ``checkpoint_path`` the chain state (positions, tuned
-    step sizes, mass matrices, draws so far) is saved after the warmup and
-    after every chunk, each chunk of draws once to its own sidecar, and a
-    run with the same identity (kernel_id, n_warmup, chains, dim) resumes
-    from it. ``solve_stats``: the forward model's SolveStats, whose counts
-    over this run go into the result.
+    Draws come in chunks of ``checkpoint_every`` samples (default: 10
+    chunks with a checkpoint, else one); with ``checkpoint_path`` the chain
+    state (positions, tuned step sizes, mass matrices, draws so far) is
+    saved after the warmup and after every chunk, each chunk of draws once
+    to its own sidecar, and a run with the same identity (kernel_id,
+    n_warmup, chains, dim) resumes from it. ``solve_stats``: the forward
+    model's SolveStats, whose counts over this run go into the result.
     """
     theta0 = torch.as_tensor(theta0)
     dev = theta0.device
@@ -300,9 +289,6 @@ def run_chains(
         mean = torch.zeros_like(theta0)
         m2 = torch.zeros_like(theta0)
         cnt = 0.0
-        seg = warmup_chunk if warmup_chunk > 0 else max(n_warmup, 1)
-        seg_seconds = []
-        t_seg = time.perf_counter()
         for t in range(n_warmup):
             state, ap, _ = transition(
                 target, _generator(seed, _WARMUP, t, dev), state,
@@ -324,12 +310,8 @@ def run_chains(
                 mean = torch.zeros_like(mean)
                 m2 = torch.zeros_like(m2)
                 cnt = 0.0
-            if (t + 1) % seg == 0 or t + 1 == n_warmup:
-                _sync(dev)
-                now = time.perf_counter()
-                seg_seconds.append(now - t_seg)
-                t_seg = now
-        return state.theta, torch.exp(da.log_step_avg), inv_mass, seg_seconds
+        _sync(dev)
+        return state.theta, torch.exp(da.log_step_avg), inv_mass
 
     chunk = checkpoint_every or (max(1, n_samples // 10)
                                  if checkpoint_path else n_samples)
@@ -357,14 +339,14 @@ def run_chains(
         except (OSError, KeyError, ValueError, EOFError, zipfile.BadZipFile):
             resumed = False  # missing or corrupt chunk sidecar: start fresh
 
-    warmup_seconds, seg_seconds = 0.0, []
+    warmup_seconds = 0.0
     if not resumed:
         if checkpoint_path:
             # Fresh start over an old or foreign checkpoint: drop its chunk
             # sidecars so they cannot shadow this run's.
             ckpt.clean_chunks(checkpoint_path)
         t0 = time.perf_counter()
-        theta, step, inv_mass, seg_seconds = run_warmup()
+        theta, step, inv_mass = run_warmup()
         warmup_seconds = time.perf_counter() - t0
         draws, done = [], 0
         acc_sum = np.zeros(n_chains)
@@ -419,11 +401,11 @@ def run_chains(
         ess=ess,
         evals_per_sample=eval_sum / max(n_samples, 1),
         warmup_seconds=warmup_seconds,
-        warmup_segment_seconds=seg_seconds,
         chunk_seconds=chunk_seconds,
         chunk_sizes=chunk_sizes,
         grad_evals=n_evals,
-        solve_stats=_solve_delta(solve_stats, stats0),
+        solve_stats=None if solve_stats is None else solve_stats.since(
+            stats0),
     )
 
 
@@ -438,19 +420,15 @@ def guarded_logp_grad_b(logp_fn) -> Callable:
         with torch.enable_grad():
             v = logp_fn(th)
             (g,) = torch.autograd.grad(v.sum(), th)
-        return _guard(v.detach(), g)
+        v = v.detach()
+        return (torch.where(torch.isfinite(v), v, -math.inf),
+                torch.where(torch.isfinite(g), g, 0.0))
 
     return logp_grad_b
 
 
-def _guard(v, g):
-    v = torch.where(torch.isfinite(v), v, torch.full_like(v, -math.inf))
-    g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
-    return v, g
-
-
 def run_hmc(
-    logp_fn: Optional[Callable[[torch.Tensor], torch.Tensor]],
+    logp_fn: Callable[[torch.Tensor], torch.Tensor],
     theta0: torch.Tensor,  # [chains, D]
     seed: int,
     *,
@@ -461,26 +439,14 @@ def run_hmc(
     target_accept: float = 0.8,
     checkpoint_path: Optional[str] = None,
     checkpoint_every: int = 0,
-    logp_grad_b: Optional[Callable] = None,
-    warmup_chunk: int = 0,
     solve_stats=None,
 ) -> HMCResult:
     """Run batched HMC chains with windowed warmup on theta0's device.
 
-    Either `logp_fn` (chain-batched log density [C, D] -> [C]) or
-    `logp_grad_b` ([C, D] -> ([C], [C, D]) value and gradient) must be
-    given; `logp_grad_b` wins. `seed` fixes every draw. See ``run_chains``
-    for chunks, checkpoint/resume and `solve_stats`.
+    `logp_fn` is a chain-batched log density [C, D] -> [C]; `seed` fixes
+    every draw. See ``run_chains`` for chunks, checkpoint/resume and
+    `solve_stats`.
     """
-    if logp_grad_b is None:
-        if logp_fn is None:
-            raise ValueError("need logp_fn or logp_grad_b")
-        logp_grad_b = guarded_logp_grad_b(logp_fn)
-    else:
-        raw = logp_grad_b
-
-        def logp_grad_b(theta):  # noqa: F811 (guard the supplied target)
-            return _guard(*raw(theta))
 
     def transition(target, gen, state, step, inv_mass):
         state, ap = hmc_transition(target, gen, state, step, inv_mass,
@@ -488,14 +454,14 @@ def run_hmc(
         return state, ap, torch.full_like(ap, float(n_leapfrog))
 
     return run_chains(
-        logp_grad_b, transition, theta0, seed,
+        guarded_logp_grad_b(logp_fn), transition, theta0, seed,
         n_samples=n_samples, n_warmup=n_warmup, init_step=init_step,
         target_accept=target_accept, checkpoint_path=checkpoint_path,
         checkpoint_every=checkpoint_every,
         # Not the reference's "hmc:leapfrog{n}": the generators differ, so a
         # JAX checkpoint must not resume here, nor a torch one there.
         kernel_id=f"torch-hmc:leapfrog{n_leapfrog}",
-        warmup_chunk=warmup_chunk, solve_stats=solve_stats,
+        solve_stats=solve_stats,
     )
 
 

@@ -160,6 +160,23 @@ def test_theta_kernel_tiling(n, sx, B, flags, dtype):
         ref.abs().max())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_theta_kernel_at_cli_smc_width(dtype):
+    """One theta_sweep_batched launch at B = 256, the particle count of `cli
+    calibrate --sampler smc` ([256, 3, 35, 35, 35] at 32^3), against the
+    plain version in float64 on the CPU (in chunks of 32 chains)."""
+    _need_cuda()
+    up, t2, coef = _theta_case((32, 32, 32), {}, dtype, 256, 256)
+    f = stencil.theta_sweep_batched(up, t2, coef, 1, 1).cpu()
+    up64, t64, c64 = (x.cpu().double() for x in (up, t2, coef))
+    for b in range(0, 256, 32):
+        ref = stencil.theta_sweep_reference(up64[b:b + 32], t64,
+                                            c64[b:b + 32], 1, 1)
+        assert bool(torch.isfinite(f[b:b + 32]).all())
+        assert float((f[b:b + 32].double() - ref).abs().max()) <= RTOL[
+            dtype] * float(ref.abs().max())
+
+
 def test_theta_kernels_refuse_bad_input():
     _need_cuda()
     up, t2, coef = _theta_case((3, 3, 3), {}, torch.float32, 2, 0)
@@ -201,3 +218,93 @@ def test_chain_batched_solve_matches_cpu_float64():
     assert stencil.theta_batched_launches - before >= st.forward_loop_iters
     for c in range(16):
         assert np.abs(u[c] - ref[c]).max() <= 1e-4 * np.abs(ref[c]).max()
+
+
+def test_stencil_opt_in_on_every_device():
+    """stencil_sweep at the 71^3 float32 shape ([3, 73, 73, 73], about
+    59 KB of dynamic shared memory, above the 48 KB default) on every
+    visible device in one process, in the order 0, 1, ...: the kernel's
+    shared-memory opt-in is kept per device, so each card gets its own."""
+    _need_cuda()
+    tables = stencil.build_stencil_operator(
+        meshgen.hex_beam(4, 4, 3), dtype=torch.float64, device="cpu").tables
+    rng = np.random.default_rng(71)
+    up_np = rng.standard_normal((3, 73, 73, 73))
+    for d in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", d)
+        table = stencil.pack_tables(tables, torch.float32, dev)
+        up = torch.as_tensor(up_np, dtype=torch.float32, device=dev)
+        f = stencil.stencil_sweep(up, table, 1, 1)
+        ref = stencil.stencil_sweep_reference(up, table, 1, 1)
+        torch.cuda.synchronize(dev)
+        assert f.device == dev and bool(torch.isfinite(f).all())
+        assert float((f - ref).abs().max()) <= RTOL[torch.float32] * float(
+            ref.abs().max())
+
+
+def test_fields_on_cuda_match_cpu_float64():
+    _need_cuda()
+    from stan_tpu_torch.post import fields
+
+    m = meshgen.hex_beam(6, 5, 4)
+    solve_linear_statics(m, device="cpu", dtype=torch.float64)
+    got = fields.compute_all(m, 1, device="cuda")
+    ref = fields.compute_all(m, 1, device="cpu")
+    assert list(got) == list(ref) and len(got) == 96
+    for name, want in ref.items():
+        assert np.abs(got[name] - want).max() <= 1e-12 * max(
+            np.abs(want).max(), 1e-300), name
+
+
+@pytest.mark.parametrize("sampler", ["vi", "smc"])
+def test_cli_calibrate_on_cuda(tmp_path, monkeypatch, sampler):
+    """`cli calibrate --sampler vi|smc --device cuda` on a 4^3 STdb, short:
+    5 ADVI steps; SMC with its 256 particles (4 chains), 1 Metropolis
+    step and at most 2 stages. Exit code 0, and the batched kernel ran."""
+    _need_cuda()
+    pytest.importorskip("google.protobuf")
+    import functools
+
+    from stan_tpu_torch import cli
+    from stan_tpu_torch.infer import smc
+    from stan_tpu_torch.io import stdb
+
+    monkeypatch.setattr(smc, "run_smc", functools.partial(
+        smc.run_smc, n_mcmc=1, max_stages=2))
+    path = str(tmp_path / "beam.STdb")
+    stdb.write(meshgen.hex_beam(4, 4, 4), path)
+    before = stencil.theta_batched_launches
+    assert cli.main(["calibrate", path, "--synthetic", "--sampler", sampler,
+                     "--chains", "4", "--samples", "5",
+                     "--device", "cuda"]) == 0
+    assert stencil.theta_batched_launches > before
+
+
+def test_nuts_transition_on_cuda():
+    """One NUTS transition of 4 chains on a 4^3 beam's posterior on the
+    card: finite states and 1..2^max_depth - 1 gradient evaluations per
+    chain."""
+    _need_cuda()
+    from stan_tpu_torch.infer import calibrate, forward, hmc, nuts
+
+    m = meshgen.hex_beam(4, 4, 4)
+    fwd = forward.build_forward(m, device="cuda", cg_tol=1e-6)
+    u = forward.displacement_fn(fwd, m.nelem)(torch.tensor(
+        [np.log(190000.0), 0.28, 0.0], device="cuda")).cpu().numpy()
+    nodes = np.argsort(np.abs(u).max(axis=1))[-8:]
+    prob = calibrate.make_problem(m, nodes, np.full(8, 2), u[nodes, 2],
+                                  1e-3 * np.abs(u).max(), device="cuda",
+                                  cg_tol=1e-6)
+    theta = torch.tensor([[np.log(200000.0), 0.1, 0.0]] * 4, device="cuda",
+                         dtype=torch.float64)
+    target = hmc.guarded_logp_grad_b(prob.log_posterior)
+    state = hmc.HMCState(theta, *target(theta))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    max_depth = 4
+    new, accept, n_evals = nuts.nuts_transition(
+        target, gen, state, torch.full((4,), 0.02, dtype=torch.float64,
+                                       device="cuda"),
+        torch.ones_like(theta), max_depth)
+    assert all(bool(torch.isfinite(t).all()) for t in new)
+    assert ((n_evals >= 1) & (n_evals <= 2 ** max_depth - 1)).all()
+    assert ((accept >= 0) & (accept <= 1)).all()

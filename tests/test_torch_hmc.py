@@ -173,11 +173,6 @@ def test_checkpoint_resume_reproduces_straight_run(tmp_path):
     np.testing.assert_array_equal(resumed.samples, straight.samples)
     np.testing.assert_array_equal(resumed.step_size, straight.step_size)
     np.testing.assert_array_equal(resumed.inv_mass, straight.inv_mass)
-    # Warmup segments are timing boundaries only.
-    seg = hmc.run_hmc(_gauss_logp, theta0, 8, n_samples=20, warmup_chunk=7,
-                      **_KW)
-    np.testing.assert_array_equal(seg.samples, straight.samples)
-    assert len(seg.warmup_segment_seconds) == 5
 
 
 def test_checkpoint_of_the_jax_sampler_is_not_resumed(tmp_path):
@@ -226,7 +221,9 @@ def test_cli_calibrate_synthetic(tmp_path, capsys):
     text = capsys.readouterr().out
     assert "POSTERIOR" in text and "0 unconverged" in text
     assert "at cg_tol 1e-06" in text
-    for sampler in ("nuts", "vi", "smc"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            cli.main(["calibrate", path, "--synthetic", "--sampler", sampler,
-                      "--device", "cpu"])
+    # Every sampler is ported; a [sharding] device mesh is not.
+    cfg = tmp_path / "run.toml"
+    cfg.write_text("[sharding]\nchains = 2\n")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        cli.main(["calibrate", path, "--synthetic", "--config", str(cfg),
+                  "--device", "cpu"])

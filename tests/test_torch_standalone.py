@@ -1,6 +1,7 @@
-"""The port stands alone: it imports nothing of stan_tpu, and its copies of
-the reference's host modules (meshgen, model, STdb IO, checkpoints) agree
-with the originals.
+"""The port stands alone: it imports nothing of stan_tpu, jax or optax, and
+its copies of the reference's host modules (meshgen, model, STdb IO,
+checkpoints, the .vtu writer, the .bdf reader and writer, run records)
+agree with the originals.
 
 The import scan reads the source, so it also sees imports inside functions
 that no test calls. The subprocess check that nothing of stan_tpu, jax or
@@ -9,17 +10,23 @@ tests/test_torch_linear.py::test_port_never_imports_jax.
 """
 
 import ast
+import json
 import pathlib
+import re
 
 import numpy as np
 import pytest
 
 from stan_tpu.core import meshgen as jmeshgen
+from stan_tpu.io import nastran as jnastran
 from stan_tpu.io import stdb as jstdb
+from stan_tpu.io import vtu as jvtu
 from stan_tpu.utils import checkpoint as jckpt
+from stan_tpu.utils import runlog as jrunlog
 from stan_tpu_torch.core import meshgen
-from stan_tpu_torch.io import stdb
+from stan_tpu_torch.io import nastran, stdb, vtu
 from stan_tpu_torch.utils import checkpoint as ckpt
+from stan_tpu_torch.utils import runlog
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(str(p.relative_to(REPO)) for p in
@@ -47,8 +54,24 @@ def _imported_modules(tree):
 def test_port_file_imports_nothing_of_stan_tpu(rel):
     tree = ast.parse((REPO / rel).read_text(), filename=rel)
     bad = [m for m in _imported_modules(tree)
-           if m.split(".")[0] in ("stan_tpu", "jax", "jaxlib")]
+           if m.split(".")[0] in ("stan_tpu", "jax", "jaxlib", "optax")]
     assert not bad, f"{rel} imports {bad}"
+
+
+# The port's copies of host modules of the reference, each headed by the
+# name of its source.
+HOST_COPIES = ["core/model.py", "core/meshgen.py", "core/validate.py",
+               "fem/elements.py", "fem/hostops.py", "io/wire.py",
+               "io/stdb_pb2.py", "io/stdb.py", "io/vtu.py", "io/nastran.py",
+               "utils/config.py", "utils/checkpoint.py", "utils/runlog.py"]
+
+
+@pytest.mark.parametrize("rel", HOST_COPIES)
+def test_host_copy_names_its_source(rel):
+    head = (REPO / "stan_tpu_torch" / rel).read_text().splitlines()[:2]
+    assert any(re.match(rf"# Copied (unchanged )?from stan_tpu/{rel}\b", line)
+               for line in head), head
+    assert (REPO / "stan_tpu" / rel).exists()
 
 
 def test_import_scan_sees_lazy_imports():
@@ -152,3 +175,45 @@ def test_reference_checkpoint_loads_through_the_port(tmp_path):
     back = jckpt.load(path)
     np.testing.assert_array_equal(back["theta"], tree["theta"])
     assert ckpt.clean_chunks(path) == 2
+
+
+@pytest.mark.parametrize("binary", [True, False])
+def test_vtu_file_equals_reference(tmp_path, binary):
+    """The copied writer writes the reference's bytes."""
+    m = jmeshgen.hex_beam(3, 2, 1)
+    rng = np.random.default_rng(2)
+    kw = dict(point_data={"p": rng.normal(size=(m.nnode, 3))},
+              cell_data={"c": rng.normal(size=m.nelem)}, binary=binary)
+    vtu.write_vtu(str(tmp_path / "a.vtu"), m.coords, m.conn, **kw)
+    jvtu.write_vtu(str(tmp_path / "b.vtu"), m.coords, m.conn, **kw)
+    assert (tmp_path / "a.vtu").read_bytes() == (tmp_path / "b.vtu"
+                                                 ).read_bytes()
+
+
+def test_write_bdf_equals_reference(tmp_path):
+    m = meshgen.hex_beam(4, 3, 2, lx=6.0, ly=1.5, lz=3.0)
+    nastran.write_bdf(m, str(tmp_path / "a.bdf"), comment="x")
+    jnastran.write_bdf(m, str(tmp_path / "b.bdf"), comment="x")
+    assert (tmp_path / "a.bdf").read_text() == (tmp_path / "b.bdf"
+                                                ).read_text()
+    # and each reads the other's file into the same mesh
+    a = nastran.read_bdf(str(tmp_path / "b.bdf"))
+    b = jnastran.read_bdf(str(tmp_path / "a.bdf"), use_native=False)
+    for name in ("node_ids", "coords", "elem_ids", "conn", "elem_pid"):
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+
+
+def test_runlog_record_equals_reference():
+    """The same record as the reference's, but for the clock and the pid,
+    for the fields both can write."""
+    m = meshgen.hex_beam(2, 2, 2)
+    kw = dict(model=m, iters=np.int64(17), residual=np.float32(1e-7),
+              converged=True, per_chain=np.array([1.5, 2.5]))
+    ref = jrunlog.make_record("solve", **kw)
+    mine = runlog.make_record("solve", **kw)
+    for r in (ref, mine):
+        del r["unix_time"], r["pid"]
+    assert mine.keys() == ref.keys()
+    dumped = [json.dumps(r, default=c) for r, c in
+              ((mine, runlog._coerce), (ref, jrunlog._coerce))]
+    assert dumped[0] == dumped[1]
