@@ -59,7 +59,26 @@ Phases, each of which raises on failure:
  13. ADVI (10 steps of 8 ELBO draws) and SMC (32 particles, 2 Metropolis
      steps, 2 stages) on the same posterior: finite results, and rising
      temperatures for SMC; each with its batched launches and unconverged
-     solves (prior draws of ν near 0.5 may stop at the CG cap).
+     solves (prior draws of ν near 0.5 may stop at the CG cap);
+ 14. the direct solvers through solve_linear_statics(device="cuda"): dense
+     Cholesky and LU on the card, float32 and float64, on hex_beam(20, 8,
+     8) split into TET4 (5,103 DOF, under the 6000-DOF dense limit), and
+     the banded float64 host solvers on hex_beam(60, 12, 12) (30,927
+     DOF); each float64 answer within 1e-8 of max|u| of a float64 CG solve
+     of the same model at tol 1e-13;
+ 15. Total-Lagrangian nonlinear statics on hex_beam(70, 70, 70), float32,
+     2 increments, the tip load scaled from the linear solve of phase 6 so
+     that the linear tip deflection is 3% of the side: converged, and the
+     float64 relative residual of the returned u, from the internal force
+     evaluated in float64 on the card, at most 1e-3;
+ 16. one 16-chain log-posterior gradient of the 32^3 calibration through
+     the stencil, per-element-field (homogeneous broadcast) and general
+     forwards, in float32 (timed) and in float64: u and the gradient agree
+     to 1e-4 of their largest magnitude in float64, and to 1e-2 in float32
+     (the float32 floor of the stencil and field operators);
+ 17. HMC through make_problem on the 32^3 beam with the elements at x >=
+     L/2 a second material (E = 95000): the field forward, 16 chains, 8
+     leapfrog steps, 3 warmup + 3 samples, its unconverged solves counted.
 
 --kernels runs phases 1-5 only (build, every kernel against its plain
 version, the timings), prints the kernels line with no launch counts (no
@@ -67,8 +86,9 @@ main path ran) and ends with a line that says the run was partial, not
 with the ok line: a quick probe of the kernels alone.
 
 Two measurements run only when asked for:
-  --profile  100 float32 CG iterations on the 70^3 stencil operator, and
-             one 16-chain gradient of the 32^3 posterior near θ_true, under
+  --profile  100 float32 CG iterations on the 70^3 stencil operator, one
+             16-chain gradient of the 32^3 posterior near θ_true, and 50
+             CG iterations on the 70^3 nonlinear solve's tangent, under
              torch.profiler: wall time, (chain-batched) CG iterations, ms
              per iteration, device busy share, device time by kernel,
              launches per iteration; before the ADVI phase, three one-step
@@ -79,7 +99,10 @@ Two measurements run only when asked for:
              protobuf), at the CLI's default tolerance and at 1e-8 (a
              short run), printing the CLI's counts of unconverged solves;
              then `cli calibrate --sampler nuts` (short), `cli solve` and
-             `cli export` on the same STdb.
+             `cli export` on the same STdb; `cli solve --type
+             Nonlinear_Statics --increments 2` on it, `cli solve --solver
+             Cholesky` on a 12x6x6 beam, and `cli calibrate --sampler hmc`
+             (short) on the two-material 32^3 beam.
 
 Prints a JSON line of kernel facts and, last, one JSON line naming the
 device; before those, it checks that no module of stan_tpu was loaded.
@@ -87,10 +110,17 @@ Exits non-zero, with no result, when there is no CUDA device.
 
 Run from the repository root:
   python3 chip_smoke.py [--profile] [--cli] | [--kernels]
+
+The general path's phases (14-17) run no kernel of their own: the device
+code of the direct solvers, the nonlinear statics and the field and
+general forwards is plain torch and torch.linalg, as it is XLA in the JAX
+package; the banded solver is float64 host LAPACK in both.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import itertools
 import json
 import subprocess
@@ -109,6 +139,20 @@ N_SAMPLES = 5
 NUTS_DEPTH, NUTS_WARMUP, NUTS_SAMPLES = 5, 5, 3
 VI_STEPS, VI_DRAWS = 10, 8
 SMC_PARTICLES, SMC_MCMC, SMC_STAGES = 32, 2, 2
+# The general path: direct solvers on a TET4 model under the dense limit
+# (1,701 nodes, 5,103 DOF) and on a beam above it (30,927 DOF), held to a
+# float64 CG solve; Total-Lagrangian statics at the linear size; the three
+# forward problems of the calibration; HMC on a two-material beam.
+TET_BEAM, BAND_BEAM = (20, 8, 8), (60, 12, 12)
+DIRECT_CG_TOL, DIRECT_GAP = 1e-13, 1e-8
+NL_DEFLECTION, NL_INCREMENTS = 0.03, 2
+# The three forwards agree to FORWARDS_GAP in float64. In float32 they
+# agree only to float32's floor (the stencil and field operators' rounded
+# element stiffness no longer annihilates rigid motions exactly): at 32^3
+# on an H100, 2.3e-4 of max|u| and 2.2e-3 of the largest gradient entry,
+# so float32 is held to FORWARDS_GAP_F32.
+FORWARDS_GAP, FORWARDS_GAP_F32 = 1e-4, 1e-2
+TWO_MAT_WARMUP, TWO_MAT_SAMPLES = 3, 3
 # A float64 field pass on the card and on the CPU: the same operations,
 # each rounded once, in other libraries and summation orders.
 FIELD_RTOL = 1e-12
@@ -124,6 +168,30 @@ FD_H, FD_REL, FD_ABS = 1e-4, 2e-3, 1e-3
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 FLUSH_BYTES = 256 * 2**20  # > the 50 MB L2
+
+
+# The six tetrahedra of a HEX8 around its corner-0 to corner-6 diagonal, in
+# the HEX8 corner order of meshgen.hex_beam.
+_HEX_TO_TETS = np.array([[0, 1, 2, 6], [0, 2, 3, 6], [0, 3, 7, 6],
+                         [0, 7, 4, 6], [0, 4, 5, 6], [0, 5, 1, 6]])
+
+
+def tet_split(model, elem_type: str = "TET4_G1"):
+    """The model with each HEX8 split into 6 TET4 (the same nodes, loads,
+    supports and materials, copied), each tet numbered to a positive
+    volume; works on a model of either package."""
+    model = copy.deepcopy(model)
+    conn = np.asarray(model.conn)[:, _HEX_TO_TETS].reshape(-1, 4)
+    p = np.asarray(model.coords)[conn]
+    vol = np.einsum("ij,ij->i", np.cross(p[:, 1] - p[:, 0],
+                                         p[:, 2] - p[:, 0]), p[:, 3] - p[:, 0])
+    conn[vol < 0] = conn[vol < 0][:, [0, 2, 1, 3]]
+    n = len(conn)
+    return dataclasses.replace(
+        model, conn=conn, elem_ids=np.arange(1, n + 1, dtype=np.int64),
+        elem_pid=np.repeat(np.asarray(model.elem_pid), 6),
+        elem_type=[elem_type] * n,
+        elem_mat=np.repeat(np.asarray(model.elem_mat), 6))
 
 
 def require(cond, msg: str) -> None:
@@ -414,18 +482,19 @@ def reset_launches():
     stencil.theta_batched_launches = 0
 
 
-def calibration_observations(model, card):
-    """bench.py's synthetic observations (bench.py:284-313), made with the
-    port's own forward at θ_true: 128 strongly deflected nodes x 3
-    directions, 1% noise. Returns (obs_nodes, obs_dirs, y, sigma, stats of
-    the θ_true solve)."""
-    from stan_tpu_torch.infer import forward
+def launch_counts() -> tuple:
+    """The launches of (stencil_sweep, theta_sweep, theta_sweep_batched)
+    since the last reset_launches()."""
+    from stan_tpu_torch.fem import stencil
 
-    fwd = forward.build_forward(model, device="cuda", cg_tol=1e-6)
-    u_true = forward.displacement_fn(fwd, model.nelem)(
-        torch.as_tensor(THETA_TRUE, device="cuda")).detach().cpu().numpy()
-    stats = fwd.stats.as_dict()
-    print(f"[{card}] forward at θ_true: {stats}")
+    return (stencil.launches, stencil.theta_launches,
+            stencil.theta_batched_launches)
+
+
+def observe(u_true):
+    """bench.py's synthetic observations (bench.py:284-313) of a solve u_true
+    [nnode, 3]: 128 strongly deflected nodes x 3 directions, 1% noise.
+    Returns (obs_nodes, obs_dirs, y, sigma)."""
     total = np.linalg.norm(u_true, axis=1)
     nodes = np.nonzero(total > 0.3 * total.max())[0][:128]
     obs_nodes = np.repeat(nodes, 3)
@@ -433,7 +502,20 @@ def calibration_observations(model, card):
     rng = np.random.default_rng(0)
     sigma = 1e-2 * float(np.abs(u_true).max())
     y = u_true[obs_nodes, obs_dirs] + sigma * rng.normal(size=len(obs_nodes))
-    return obs_nodes, obs_dirs, y, sigma, stats
+    return obs_nodes, obs_dirs, y, sigma
+
+
+def calibration_observations(model, card):
+    """observe() of the port's own forward at θ_true. Returns (obs_nodes,
+    obs_dirs, y, sigma, stats of the θ_true solve)."""
+    from stan_tpu_torch.infer import forward
+
+    fwd = forward.build_forward(model, device="cuda", cg_tol=1e-6)
+    u_true = forward.displacement_fn(fwd, model.nelem)(
+        torch.as_tensor(THETA_TRUE, device="cuda")).detach().cpu().numpy()
+    stats = fwd.stats.as_dict()
+    print(f"[{card}] forward at θ_true: {stats}")
+    return (*observe(u_true), stats)
 
 
 def fd_gradient_check(model, obs, card) -> None:
@@ -701,17 +783,16 @@ def profile_advi(prob, theta0, card, top: int = 8) -> None:
               f"{e.key[:80]}")
 
 
-def profile_linear(op, rhs, diag, card, iters: int = 100, top: int = 6
-                   ) -> None:
-    """iters float32 CG iterations on the 70^3 stencil operator (the base
-    solve's loop, with its per-iteration host check) under torch.profiler:
-    wall and device busy time per iteration, busy share, device time by
-    kernel."""
+def profile_cg(apply, rhs, diag, label, card, iters: int = 100,
+               top: int = 6) -> None:
+    """iters float32 CG iterations of cg.pcg on `apply` (with its
+    per-iteration host check) under torch.profiler: wall and device busy
+    time per iteration, busy share, device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from stan_tpu_torch.solvers import cg
 
-    run = lambda: cg.pcg(op.apply, rhs, diag=diag, tol=0.0,  # noqa: E731
+    run = lambda: cg.pcg(apply, rhs, diag=diag, tol=0.0,  # noqa: E731
                          maxiter=iters)
     run()
     wall_s = wall(run)
@@ -723,15 +804,301 @@ def profile_linear(op, rhs, diag, card, iters: int = 100, top: int = 6
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in dev)
     launches = sum(e.count for e in dev)
-    print(f"[{card}] profile, {iters} float32 CG iterations on the {N}^3 "
-          f"stencil operator: {wall_s / iters * 1e3:.4f} ms per iteration "
-          f"unprofiled; device busy {busy_us / iters / 1e3:.4f} ms per "
-          f"iteration, busy share {busy_us / 1e6 / wall_s:.3f}; "
-          f"{launches / iters:.1f} device events per iteration")
+    print(f"[{card}] profile, {iters} float32 CG iterations on {label}: "
+          f"{wall_s / iters * 1e3:.4f} ms per iteration unprofiled; device "
+          f"busy {busy_us / iters / 1e3:.4f} ms per iteration, busy share "
+          f"{busy_us / 1e6 / wall_s:.3f}; {launches / iters:.1f} device "
+          f"events per iteration")
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"[{card}]   {e.self_device_time_total / busy_us:6.1%} "
               f"{e.count:7d} x {e.self_device_time_total / e.count:8.2f} us  "
               f"{e.key[:90]}")
+
+
+def _max_gap(a, b) -> float:
+    """max|a - b| / max|b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max()) / float(np.abs(b).max())
+
+
+def direct_phase(card) -> None:
+    """The direct solvers through solve_linear_statics: dense Cholesky and
+    LU on the card, float32 and float64, on hex_beam(*TET_BEAM) split into
+    TET4 (under the 6000-DOF dense limit), and the banded float64 host
+    solvers on hex_beam(*BAND_BEAM) (above it). Each float64 answer is held
+    to a float64 CG solve of the same model to DIRECT_GAP of max|u|."""
+    from stan_tpu_torch.analysis.linear import solve_linear_statics
+    from stan_tpu_torch.core import meshgen
+    from stan_tpu_torch.utils.timing import PhaseTimer
+
+    for label, make, dtypes in (
+            (f"TET4 split of hex_beam{TET_BEAM}",
+             lambda: tet_split(meshgen.hex_beam(*TET_BEAM)),
+             (torch.float32, torch.float64)),
+            (f"hex_beam{BAND_BEAM}", lambda: meshgen.hex_beam(*BAND_BEAM),
+             (torch.float64,))):
+        cg_model = make()
+        cg_model.analysis.lin_solver_tolerance = DIRECT_CG_TOL
+        reset_launches()
+        t0 = time.perf_counter()
+        ref = solve_linear_statics(cg_model, device="cuda",
+                                   dtype=torch.float64, store=False)
+        cg_s = time.perf_counter() - t0
+        print(f"[{card}] {label} ({3 * cg_model.nnode} DOF, "
+              f"{cg_model.nelem} elements): float64 CG ({ref.operator}) to "
+              f"{DIRECT_CG_TOL:g}: {ref.iters} iterations, converged "
+              f"{ref.converged}, {cg_s:.3f} s, stencil_sweep launches "
+              f"{launch_counts()[0]}")
+        for solver in ("Cholesky", "LU"):
+            for dtype in dtypes:
+                m = make()
+                m.analysis.lin_solver = solver
+                timer = PhaseTimer(verbose=False)
+                t0 = time.perf_counter()
+                res = solve_linear_statics(m, device="cuda", dtype=dtype,
+                                           timer=timer, store=False)
+                solve_s = time.perf_counter() - t0
+                gap = _max_gap(res.u, ref.u)
+                phases = ", ".join(f"{r['phase']} {r['seconds']:.4f} s"
+                                   for r in timer.records)
+                print(f"[{card}] {label} {solver} {str(dtype)[6:]}: operator "
+                      f"{res.operator}, float64 residual "
+                      f"{res.true_residual:.3e}, {solve_s:.3f} s ({phases}); "
+                      f"max|u - u_CG| / max|u_CG| = {gap:.3e}")
+                want = ("dense-" if 3 * m.nnode <= 6000 else "banded-") \
+                    + solver.lower()
+                require(res.operator == want, f"{label}: {res.operator}")
+                require(np.isfinite(res.u).all() and np.isfinite(
+                    res.stress).all(), f"{label} {solver}: not finite")
+                if dtype == torch.float64:
+                    require(gap <= DIRECT_GAP,
+                            f"{label} {solver}: {gap} from float64 CG")
+
+
+def nonlinear_phase(lin_u, card, profile) -> None:
+    """solve_nonlinear_statics on hex_beam(N, N, N), float32, NL_INCREMENTS
+    increments, the tip load scaled so that the linear tip deflection
+    (lin_u, the linear solve under hex_beam's 10 N) is NL_DEFLECTION of
+    the side; then the internal force in float64 on the device at the
+    returned u: the relative residual must be at most 1e-3."""
+    from stan_tpu_torch.analysis import nonlinear
+    from stan_tpu_torch.core import meshgen
+    from stan_tpu_torch.fem.operator import build_operator
+    from stan_tpu_torch.utils.timing import PhaseTimer
+
+    n = N
+    w0 = float(np.abs(lin_u[:, 2]).max())
+    P = -10.0 * NL_DEFLECTION * n / w0
+    model = meshgen.hex_beam(n, n, n, load=(0.0, 0.0, P))
+    model.analysis.inc_numb = NL_INCREMENTS
+    print(f"[{card}] nonlinear {n}^3 ({model.ndof} DOF): tip load P = "
+          f"{P:.6g} (linear tip deflection {NL_DEFLECTION:.0%} of the side "
+          f"{n}), {NL_INCREMENTS} increments, float32")
+    timer = PhaseTimer(verbose=False)
+    t0 = time.perf_counter()
+    res = nonlinear.solve_nonlinear_statics(model, device="cuda", timer=timer,
+                                            store=False)
+    total_s = time.perf_counter() - t0
+    for r in timer.records:
+        if not r["phase"].startswith("Increment"):
+            print(f"[{card}] nonlinear phase {r['phase']}: "
+                  f"{r['seconds']:.4f} s")
+            continue
+        its = sum(r["cg_iters"])
+        print(f"[{card}] nonlinear {r['phase']}: {r['newton_iters']} Newton "
+              f"iterations, relative residual {r['residual']}, CG "
+              f"iterations per Newton step {r['cg_iters']}, "
+              f"{r['seconds']:.3f} s, {r['seconds'] / max(its, 1) * 1e3:.4f} "
+              f"ms per CG iteration (increment wall / CG iterations)")
+    print(f"[{card}] nonlinear solve: {total_s:.3f} s in all, converged "
+          f"{res.converged}, tip deflection "
+          f"{float(np.abs(res.u[:, 2]).max()):.6g}")
+    require(res.converged, f"nonlinear solve: residuals {res.residuals}")
+    require(np.isfinite(res.u).all() and np.isfinite(res.stress).all(),
+            "nonlinear solve not finite")
+
+    op64 = build_operator(model.coords, model.conn, model.elem_d_matrices(),
+                          model.fix_mask(), model.formulation(),
+                          dtype=torch.float64, device="cuda")
+    m = op64.free_mask
+    f = m * torch.as_tensor(model.load_vector(), dtype=torch.float64,
+                            device="cuda")
+    u64 = torch.as_tensor(res.u, dtype=torch.float64, device="cuda")
+    rel = float(torch.linalg.vector_norm(
+        f - m * nonlinear.internal_force(op64, u64))
+        / torch.linalg.vector_norm(f))
+    print(f"[{card}] nonlinear: float64 relative residual at the returned u "
+          f"{rel:.3e} (the solve's own, float32: {res.residuals[-1]:.3e})")
+    require(rel <= 1e-3, f"nonlinear float64 residual {rel}")
+    if profile:
+        del op64, u64
+        op = build_operator(model.coords, model.conn,
+                            model.elem_d_matrices(), model.fix_mask(),
+                            model.formulation(), dtype=torch.float32,
+                            device="cuda")
+        u = torch.as_tensor(res.u, device="cuda")
+        rhs = op.free_mask * (f.float() - nonlinear.internal_force(op, u))
+        profile_cg(nonlinear.tangent_operator(op, u), rhs, op.diagonal(),
+                   f"the {n}^3 tangent", card, iters=50)
+
+
+def three_forwards_phase(cal_model, obs, card) -> int:
+    """One chain-batched log-posterior gradient at the same θ [CHAINS, 3]
+    through the stencil, field (homogeneous broadcast) and general
+    (prefer_stencil=False) forwards, in float32 (cg_tol 1e-6, the
+    calibration's) and in float64 (cg_tol 1e-10). In float64 u and the
+    gradient must agree to FORWARDS_GAP of their largest magnitude; in
+    float32 to FORWARDS_GAP_F32, the float32 floor of the stencil and field
+    operators. Returns the theta_sweep_batched launches of the stencil
+    gradients."""
+    from stan_tpu_torch.infer import calibrate, forward
+
+    obs_nodes, obs_dirs, y, sigma = obs
+    theta = (np.array([np.log(210000.0), 0.0, 0.0])
+             + np.random.default_rng(5).normal(0.0, 0.1, (CHAINS, 3)))
+    theta_c = np.stack([theta[:, 0], 0.5 / (1.0 + np.exp(-theta[:, 1])),
+                        np.zeros(CHAINS)], axis=1)
+    batched = 0
+    for dtype, tol, bound in ((torch.float32, 1e-6, FORWARDS_GAP_F32),
+                              (torch.float64, 1e-10, FORWARDS_GAP)):
+        kw = dict(dtype=dtype, device="cuda", cg_tol=tol)
+        stencil_prob = calibrate.make_problem(cal_model, obs_nodes, obs_dirs,
+                                              y, sigma, **kw)
+        probs = {
+            "stencil": stencil_prob,
+            "field": calibrate.CalibrationProblem(
+                fwd=forward.build_structured_field_forward(cal_model, **kw),
+                obs_idx=stencil_prob.obs_idx, y=stencil_prob.y,
+                sigma_obs=stencil_prob.sigma_obs),
+            "general": calibrate.make_problem(cal_model, obs_nodes, obs_dirs,
+                                              y, sigma, prefer_stencil=False,
+                                              **kw),
+        }
+        got = {}
+        for name, prob in probs.items():
+            require(type(prob.fwd).__name__ == {
+                "stencil": "StencilForwardProblem",
+                "field": "StructuredFieldForwardProblem",
+                "general": "ForwardProblem"}[name], f"{name}: {prob.fwd}")
+            th = torch.tensor(theta, device="cuda", requires_grad=True)
+            reset_launches()
+            st0 = prob.fwd.stats.as_dict()
+            grad_s = wall(lambda: prob.log_posterior(th).sum().backward())
+            st = prob.fwd.stats.since(st0)
+            loop = st["forward_loop_iters"] + st["adjoint_loop_iters"]
+            batched += launch_counts()[2]
+            with torch.no_grad():
+                u = forward.displacement_fn(prob.fwd, cal_model.nelem)(
+                    torch.as_tensor(theta_c, device="cuda"))
+            got[name] = (u.cpu().numpy(), th.grad.cpu().numpy())
+            print(f"[{card}] {name} forward ({type(prob.fwd).__name__}), "
+                  f"{str(dtype)[6:]}, one {CHAINS}-chain gradient at {G}^3: "
+                  f"{grad_s:.4f} s (the field and general forwards' first "
+                  f"in float32 carry the process's first use), batched loop "
+                  f"iterations {st['forward_loop_iters']} forward + "
+                  f"{st['adjoint_loop_iters']} adjoint, unconverged "
+                  f"{st['forward_unconverged']} / "
+                  f"{st['adjoint_unconverged']}, "
+                  f"{grad_s / loop * 1e3:.4f} ms per batched iteration")
+        for name in ("field", "general"):
+            gap_u = _max_gap(got[name][0], got["stencil"][0])
+            gap_g = _max_gap(got[name][1], got["stencil"][1])
+            print(f"[{card}] {name} vs stencil forward, {str(dtype)[6:]}: u "
+                  f"gap {gap_u:.3e}, gradient gap {gap_g:.3e} (of the "
+                  f"largest magnitude; bound {bound:g})")
+            require(gap_u <= bound and gap_g <= bound,
+                    f"{name} forward vs stencil, {dtype}: u {gap_u}, "
+                    f"gradient {gap_g}")
+    return batched
+
+
+def two_material_beam(g):
+    """hex_beam(g, g, g) with the elements at x >= L/2 a second material, E
+    = 95000 (tests/test_field_forward.py:27-34)."""
+    from stan_tpu_torch.core import meshgen
+    from stan_tpu_torch.core.model import Material
+
+    m = meshgen.hex_beam(g, g, g)
+    m.materials[2] = Material(id=2, name="soft", E=95000.0, poisson=0.3)
+    elem_mat = np.asarray(m.elem_mat).reshape(g, g, g).copy()
+    elem_mat[g // 2:] = 2
+    m.elem_mat = elem_mat.reshape(-1)
+    return m
+
+
+def two_material_phase(theta0, card) -> None:
+    """HMC through make_problem on the two-material G^3 beam (the field
+    forward), observations from its own two-material solve: CHAINS chains,
+    N_LEAPFROG steps, TWO_MAT_WARMUP + TWO_MAT_SAMPLES."""
+    from stan_tpu_torch.infer import calibrate, forward, hmc
+
+    m = two_material_beam(G)
+    fwd = forward.build_forward(m, device="cuda", cg_tol=1e-6)
+    with torch.no_grad():
+        u_true = fwd.to_flat(fwd.solve(fwd.op0.lam_e, fwd.op0.mu_e))
+    obs_nodes, obs_dirs, y, sigma = observe(u_true.cpu().numpy())
+    prob = calibrate.make_problem(m, obs_nodes, obs_dirs, y, sigma,
+                                  device="cuda", cg_tol=1e-6)
+    require(isinstance(prob.fwd, forward.StructuredFieldForwardProblem),
+            f"two-material route: {type(prob.fwd).__name__}")
+    t0 = time.perf_counter()
+    out = hmc.run_hmc(prob.log_posterior, theta0, 23,
+                      n_samples=TWO_MAT_SAMPLES, n_warmup=TWO_MAT_WARMUP,
+                      n_leapfrog=N_LEAPFROG, init_step=0.02,
+                      solve_stats=prob.fwd.stats)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    st = out.solve_stats
+    sps = CHAINS * sum(out.chunk_sizes) / sum(out.chunk_seconds)
+    run_s = out.warmup_seconds + sum(out.chunk_seconds)
+    print(f"[{card}] two-material HMC {G}^3 (field forward, {CHAINS} chains, "
+          f"{N_LEAPFROG} leapfrog steps, {TWO_MAT_WARMUP} warmup + "
+          f"{TWO_MAT_SAMPLES} samples): {wall_s:.2f} s, warmup "
+          f"{out.warmup_seconds:.2f} s; samples/s (sampling phase) "
+          f"{sps:.3f}; acceptance {float(np.mean(out.accept_rate)):.3f}; "
+          f"{out.grad_evals} gradients, {run_s / out.grad_evals:.4f} s each; "
+          f"unconverged {out.unconverged_forward} forward, "
+          f"{out.unconverged_adjoint} adjoint (of {st['forward_solves']} "
+          f"each)")
+    _report_solves("two-material HMC", st, card)
+    require(out.samples.shape == (CHAINS, TWO_MAT_SAMPLES, 3)
+            and np.isfinite(out.samples).all(),
+            "two-material HMC samples not finite")
+
+
+def cli_general(card) -> None:
+    """`cli solve --type Nonlinear_Statics --increments 2` on an STdb of the
+    G^3 beam, `cli solve --solver Cholesky` on a small one, and `cli
+    calibrate --sampler hmc` (short) on the two-material G^3 beam."""
+    import tempfile
+
+    from stan_tpu_torch.core import meshgen
+    from stan_tpu_torch.io import stdb
+    from stan_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = []
+        for name, model, argv in (
+                ("beam", meshgen.hex_beam(G, G, G),
+                 ["--type", "Nonlinear_Statics", "--increments", "2"]),
+                ("small", meshgen.hex_beam(12, 6, 6),
+                 ["--solver", "Cholesky"]),
+                ("two", two_material_beam(G), None)):
+            path = f"{tmp}/{name}.STdb"
+            stdb.write(model, path)
+            runs.append(["solve", path, *argv] if argv else
+                        ["calibrate", path, "--synthetic", "--sampler", "hmc",
+                         "--chains", str(CHAINS), "--warmup", "2",
+                         "--samples", "4"])
+        for argv in runs:
+            argv = [*argv, "--device", "cuda"]
+            print(f"[{card}] python -m stan_tpu_torch.cli {' '.join(argv)}")
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            print(f"[{card}] cli {argv[0]}: exit code {rc}, "
+                  f"{time.perf_counter() - t0:.2f} s")
+            require(rc == 0, f"cli {' '.join(argv[:1] + argv[2:])}: exit "
+                             f"code {rc}")
 
 
 def cli_calibration(card) -> None:
@@ -1013,6 +1380,7 @@ def main() -> int:
     require(res.stress.shape == (model.nelem, 8, 6)
             and np.isfinite(res.stress).all()
             and np.isfinite(res.strain).all(), "stress/strain not finite")
+    lin_u = res.u
 
     # -- independent check: float64 structured operator, no kernel --------
     sop64 = structured.build_structured_operator(
@@ -1055,7 +1423,8 @@ def main() -> int:
           f"{per_s:.4f} ms with the per-iteration sync, {per_n:.4f} ms "
           f"without; sync cost {per_s - per_n:.4f} ms/iteration")
     if args.profile:
-        profile_linear(op32, rhs, diag, card)
+        profile_cg(op32.apply, rhs, diag, f"the {N}^3 stencil operator",
+                   card)
 
     # -- the calibration main path ----------------------------------------
     cal_model = meshgen.hex_beam(G, G, G)
@@ -1128,9 +1497,18 @@ def main() -> int:
         batched_launches += batched
     if args.profile:
         profile_gradient(prob, card)
+
+    # -- the general path: direct solvers, nonlinear statics, the three
+    # forward problems, HMC on a two-material beam ------------------------
+    direct_phase(card)
+    nonlinear_phase(lin_u, card, args.profile)
+    batched_launches += three_forwards_phase(
+        cal_model, (obs_nodes, obs_dirs, y, sigma), card)
+    two_material_phase(theta0, card)
     if args.cli:
         cli_calibration(card)
         cli_nuts_export(card)
+        cli_general(card)
 
     stray = sorted(m for m in sys.modules if m.split(".")[0] == "stan_tpu")
     require(not stray, f"the port loaded modules of stan_tpu: {stray}")

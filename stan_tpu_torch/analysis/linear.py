@@ -1,13 +1,20 @@
 """Linear static analysis driver.
 
-Port of stan_tpu/analysis/linear.py for the CG solver on one device. The
+Port of stan_tpu/analysis/linear.py on one device. With the CG solver the
 operator is chosen fastest first: the assembled stencil (hand-written CUDA
 sweep) on a uniform-material structured HEX8 grid, then the structured
 slice-gather operator, then the general gather/scatter operator. All three
 act on the same masked system. A solve below float64 is certified: the
 true float64 residual is computed with the same operator family built in
 float64 on the same device, and mixed-precision refinement runs until the
-configured tolerance holds. Stress recovery runs on the general operator.
+configured tolerance holds.
+
+The direct solvers (Cholesky, LU) dispatch on size as the reference does:
+up to 6000 DOF the masked K is assembled dense and factored on the device
+(solvers/direct.py); above it the banded float64 factorisation runs on the
+host (solvers/banded.py), as in the reference. Both report the true
+float64 residual, from the general operator built in float64 on the
+device. Stress recovery runs on the general operator.
 """
 
 from __future__ import annotations
@@ -19,13 +26,18 @@ import numpy as np
 import torch
 
 from stan_tpu_torch.core.model import FEModel
-from stan_tpu_torch.fem import kernels
+from stan_tpu_torch.fem import assembly, kernels
 from stan_tpu_torch.fem import stencil as stencil_mod
 from stan_tpu_torch.fem import structured as structured_mod
 from stan_tpu_torch.fem.operator import (StiffnessOperator, build_operator,
                                          default_dtype, resolve_device)
+from stan_tpu_torch.solvers import banded, direct
 from stan_tpu_torch.solvers import cg as cg_mod
 from stan_tpu_torch.utils.timing import PhaseTimer
+
+# Above this DOF count a dense [ndof, ndof] K stops being cheap (float64 at
+# 6000 DOF is 0.29 GB) and the direct path takes the banded host solver.
+_DENSE_DIRECT_MAX_DOF = 6000
 
 
 @dataclasses.dataclass
@@ -37,10 +49,13 @@ class LinearResult:
     iters: int
     residual: float
     converged: bool
-    operator: str = "general"  # stencil / structured / general
+    # stencil / structured / general (CG); dense-cholesky, dense-lu,
+    # banded-cholesky, banded-lu (direct)
+    operator: str = "general"
     n_domain: int = 1
     # True float64 relative residual of the certified solution (None when
-    # the solve ran in float64 or certification was skipped).
+    # a CG solve ran in float64 or certification was skipped); for the
+    # direct solvers, of their solution.
     true_residual: float = None
     refine_cycles: int = 0
     refine_iters: int = 0
@@ -121,6 +136,46 @@ def _f64_twin(model, kind, device):
                           dtype=torch.float64, device=device)
 
 
+def _true_residual(model, u64, device) -> float:
+    """||b - A u|| / ||b|| in float64, A the general masked operator built in
+    float64 on ``device`` (the certification's twin)."""
+    hi = _f64_twin(model, "general", device)
+    b64 = hi.free_mask * torch.as_tensor(model.load_vector(),
+                                         dtype=torch.float64, device=device)
+    bnorm = float(torch.linalg.vector_norm(b64))
+    return float(torch.linalg.vector_norm(b64 - hi.apply(u64))) / max(
+        bnorm, 1e-300)
+
+
+def _solve_direct(model, solver, op, f, timer, certify):
+    """Dense factorisation on the device up to _DENSE_DIRECT_MAX_DOF, the
+    banded float64 host factorisation above. Returns (u in the operator's
+    dtype, operator name, true float64 residual or None)."""
+    dtype, device = op.dtype, op.device
+    if 3 * model.nnode > _DENSE_DIRECT_MAX_DOF:
+        kind = f"banded-{solver.lower()}"
+        with timer.phase(f"Linear solve (banded {solver})"):
+            solve_b = (banded.solve_banded_cholesky if solver == "Cholesky"
+                       else banded.solve_banded_lu)
+            u64 = torch.as_tensor(solve_b(model, model.load_vector()),
+                                  dtype=torch.float64, device=device)
+            true_residual = (_true_residual(model, u64, device) if certify
+                             else None)
+        return u64.to(dtype), kind, true_residual
+    with timer.phase("Assembly (dense)"):
+        K = assembly.assemble_dense(
+            model.coords, model.conn, model.elem_d_matrices(),
+            model.formulation(), fix_mask=model.fix_mask(), dtype=dtype,
+            device=device)
+    with timer.phase(f"Linear solve ({solver})"):
+        solve = (direct.solve_cholesky if solver == "Cholesky"
+                 else direct.solve_lu)
+        u = solve(K, (op.free_mask * f).reshape(-1)).reshape(model.nnode, 3)
+        true_residual = (_true_residual(model, u.to(torch.float64), device)
+                         if certify else None)
+    return u, f"dense-{solver.lower()}", true_residual
+
+
 def solve_linear_statics(
     model: FEModel,
     *,
@@ -137,19 +192,16 @@ def solve_linear_statics(
     device: where the solve runs ("cuda" by default; never changed behind
       the caller's back). dtype: float32 by default (fem/operator.py).
     n_domain: None or 1; domain-sharded solves are not ported yet.
-    certify: when the solve runs below float64, certify the true float64
-      residual and refine until the configured tolerance holds.
+    certify: when a CG solve runs below float64, certify the true float64
+      residual and refine until the configured tolerance holds; for the
+      direct solvers, report the true float64 residual of their solution.
     """
     device = resolve_device(device)
     dtype = dtype or default_dtype()
     timer = timer or PhaseTimer(verbose=False)
     settings = model.analysis
     solver = settings.lin_solver
-    if solver in ("Cholesky", "LU"):
-        raise NotImplementedError(
-            f"the {solver} direct solver is not ported yet: ROADMAP.md "
-            f"queue 1, item 8 (the general path's direct solvers)")
-    if solver != "CG":
+    if solver not in ("CG", "Cholesky", "LU"):
         raise ValueError(f"Unknown linear solver {solver!r}")
     tol = float(settings.lin_solver_tolerance)
     maxiter = int(settings.lin_solver_maxiter)
@@ -161,51 +213,59 @@ def solve_linear_statics(
         op = build_operator(model.coords, model.conn, model.elem_d_matrices(),
                             fix, form, dtype=dtype, device=device)
         f = torch.as_tensor(loads, dtype=dtype, device=device)
-        kind, sop = _pick_cg_path(model, dtype, device, use_structured,
-                                  n_domain)
+        if solver == "CG":
+            kind, sop = _pick_cg_path(model, dtype, device, use_structured,
+                                      n_domain)
 
-    with timer.phase(f"Linear solve (CG, {kind})"):
-        if sop is not None:
-            res = _solve_cg_structured(sop, f, tol, maxiter)
-        else:
-            res = _solve_cg(op, f, tol, maxiter)
-        u64 = res.u.to(torch.float64)
-        iters, residual, converged = res.iters, res.residual, res.converged
-    timer.records[-1]["iters"] = iters
-
-    true_residual = None
     refine_cycles = refine_iters = 0
-    cert_op = sop if sop is not None else op
-    needs_cert = (certify and dtype != torch.float64
-                  and not (sop is None and model.nelem > 200_000))
-    if needs_cert:
-        with timer.phase("Certify (f64 refinement)"):
-            hi = _f64_twin(model, kind, device)
-            loads64 = torch.as_tensor(loads, dtype=torch.float64,
-                                      device=device)
+    needs_cert = False
+    if solver != "CG":
+        u, kind, true_residual = _solve_direct(model, solver, op, f, timer,
+                                               certify)
+        iters, residual, converged = 1, 0.0, True
+    else:
+        with timer.phase(f"Linear solve (CG, {kind})"):
             if sop is not None:
-                b64 = hi.free_mask * _to_grid(sop.node_shape, loads64)
-                x0 = _to_grid(sop.node_shape, u64)
-
-                def inner_solve(r, t):
-                    return _pcg_grid(cert_op, r, t, maxiter)
+                res = _solve_cg_structured(sop, f, tol, maxiter)
             else:
-                b64 = hi.free_mask * loads64
-                x0 = u64
+                res = _solve_cg(op, f, tol, maxiter)
+            u64 = res.u.to(torch.float64)
+            iters, residual, converged = res.iters, res.residual, \
+                res.converged
+        timer.records[-1]["iters"] = iters
 
-                def inner_solve(r, t):
-                    return _pcg_flat(cert_op, r, t, maxiter)
-            rr = cg_mod.pcg_refined(
-                None, b64, hi.apply, tol=tol, maxiter=maxiter,
-                ndof=3 * model.nnode, x0=x0, lo_dtype=dtype,
-                inner_solve=inner_solve)
-            true_residual = rr.rel_residual
-            refine_cycles = rr.cycles
-            refine_iters = rr.inner_iters
-            converged = rr.converged
-            u64 = _from_grid(rr.u) if sop is not None else rr.u
-        timer.records[-1]["refine_iters"] = refine_iters
-    u = u64.to(dtype)
+        true_residual = None
+        cert_op = sop if sop is not None else op
+        needs_cert = (certify and dtype != torch.float64
+                      and not (sop is None and model.nelem > 200_000))
+        if needs_cert:
+            with timer.phase("Certify (f64 refinement)"):
+                hi = _f64_twin(model, kind, device)
+                loads64 = torch.as_tensor(loads, dtype=torch.float64,
+                                          device=device)
+                if sop is not None:
+                    b64 = hi.free_mask * _to_grid(sop.node_shape, loads64)
+                    x0 = _to_grid(sop.node_shape, u64)
+
+                    def inner_solve(r, t):
+                        return _pcg_grid(cert_op, r, t, maxiter)
+                else:
+                    b64 = hi.free_mask * loads64
+                    x0 = u64
+
+                    def inner_solve(r, t):
+                        return _pcg_flat(cert_op, r, t, maxiter)
+                rr = cg_mod.pcg_refined(
+                    None, b64, hi.apply, tol=tol, maxiter=maxiter,
+                    ndof=3 * model.nnode, x0=x0, lo_dtype=dtype,
+                    inner_solve=inner_solve)
+                true_residual = rr.rel_residual
+                refine_cycles = rr.cycles
+                refine_iters = rr.inner_iters
+                converged = rr.converged
+                u64 = _from_grid(rr.u) if sop is not None else rr.u
+            timer.records[-1]["refine_iters"] = refine_iters
+        u = u64.to(dtype)
 
     with timer.phase("Stress recovery"):
         eps, sig, R = _recover(op, u)

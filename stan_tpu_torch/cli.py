@@ -2,10 +2,13 @@
 
 Port of stan_tpu/cli.py on one device:
 
-``solve`` mirrors the reference's linear branch: read the STdb, apply the
-TOML config and the flag overrides, validate, solve, print iterations,
-residual, operator and certified residual, write the STdb. Exit code 0 if
-the solve converged, 1 if not, 2 if the model is invalid.
+``solve`` mirrors the reference's: read the STdb, apply the TOML config and
+the flag overrides, validate, solve, write the STdb. A linear solve (CG,
+or the Cholesky and LU direct solvers) prints iterations, residual,
+operator and the float64 residual; a nonlinear one (--type
+Nonlinear_Statics, --increments N) prints each increment's Newton
+iterations, residual and CG iterations. Exit code 0 if the solve
+converged, 1 if not, 2 if the model is invalid.
 
 ``calibrate`` infers (E, ν) from the STdb's stored displacements (or, with
 --synthetic, from a solve plus noise) with the FEM solve as the forward
@@ -22,7 +25,10 @@ computed on --device), removing stored results, a summary.
 
 Usage:
   python -m stan_tpu_torch.cli solve model.STdb [--out other.STdb]
-                                     [--solver CG] [--tol 1e-6] [--maxiter N]
+                                     [--solver CG|Cholesky|LU] [--tol 1e-6]
+                                     [--maxiter N]
+                                     [--type Linear_Statics|Nonlinear_Statics]
+                                     [--increments N]
                                      [--config run.toml] [--log-json run.jsonl]
                                      [--device cuda]
   python -m stan_tpu_torch.cli calibrate model.STdb [--synthetic]
@@ -49,7 +55,7 @@ import sys
 BANNER = r"""
   ==========================================================
       stan_tpu_torch  —  structural analysis on CUDA
-      linear statics · structured HEX8 · PyTorch + CUDA
+      linear / nonlinear statics · HEX8/TET4 · PyTorch + CUDA
   ==========================================================
 """
 
@@ -59,7 +65,6 @@ def _cmd_solve(args) -> int:
     from stan_tpu_torch.io import stdb
     from stan_tpu_torch.utils import config as config_mod
     from stan_tpu_torch.utils import runlog
-    from stan_tpu_torch.analysis.linear import solve_linear_statics
     from stan_tpu_torch.utils.timing import PhaseTimer
 
     print(BANNER)
@@ -76,6 +81,10 @@ def _cmd_solve(args) -> int:
         model.analysis.lin_solver_tolerance = args.tol
     if args.maxiter is not None:
         model.analysis.lin_solver_maxiter = args.maxiter
+    if args.type:
+        model.analysis.type = args.type
+    if args.increments is not None:
+        model.analysis.inc_numb = args.increments
 
     problems = validate.check_model(model)
     if problems:
@@ -83,19 +92,39 @@ def _cmd_solve(args) -> int:
         for p in problems:
             print(f"    - {p}")
         return 2
-    if model.analysis.type != "Linear_Statics":
-        raise NotImplementedError(
-            f"analysis type {model.analysis.type!r} is not ported yet: "
-            f"ROADMAP.md queue 1, item 9 (nonlinear statics)")
 
-    res = solve_linear_statics(model, device=args.device, timer=timer)
-    print(f"   Linear solve: {res.iters} iterations, "
-          f"residual {res.residual:.3e}, converged={res.converged}")
-    print(f"   Operator: {res.operator} (device {args.device})")
-    if res.true_residual is not None:
-        print(f"   Certified f64 residual: {res.true_residual:.3e} "
-              f"({res.refine_cycles} refinement cycles, "
-              f"{res.refine_iters} extra CG iterations)")
+    record = dict(device=args.device)
+    if model.analysis.type == "Linear_Statics":
+        from stan_tpu_torch.analysis.linear import solve_linear_statics
+
+        res = solve_linear_statics(model, device=args.device, timer=timer)
+        print(f"   Linear solve: {res.iters} iterations, "
+              f"residual {res.residual:.3e}, converged={res.converged}")
+        print(f"   Operator: {res.operator} (device {args.device})")
+        if res.true_residual is not None:
+            print(f"   Certified f64 residual: {res.true_residual:.3e} "
+                  f"({res.refine_cycles} refinement cycles, "
+                  f"{res.refine_iters} extra CG iterations)")
+        record.update(iters=res.iters, residual=res.residual,
+                      operator=res.operator, n_domain=res.n_domain,
+                      true_residual=res.true_residual,
+                      refine_cycles=res.refine_cycles)
+    elif model.analysis.type == "Nonlinear_Statics":
+        from stan_tpu_torch.analysis.nonlinear import solve_nonlinear_statics
+
+        res = solve_nonlinear_statics(model, device=args.device, timer=timer)
+        for r in timer.records:
+            if r["phase"].startswith("Increment "):
+                print(f"   {r['phase']}: {r['newton_iters']} Newton "
+                      f"iterations, residual {r['residual']}, CG iterations "
+                      f"{r['cg_iters']}")
+        print(f"   Nonlinear solve: converged={res.converged} "
+              f"(device {args.device})")
+        record.update(newton_iters=res.newton_iters,
+                      residuals=res.residuals)
+    else:
+        print(f"  ERROR: unknown analysis type {model.analysis.type!r}")
+        return 2
 
     out = args.out or args.path
     with timer.phase("Write database"):
@@ -103,11 +132,9 @@ def _cmd_solve(args) -> int:
     print(timer.summary())
     if args.log_json:
         runlog.append(args.log_json, runlog.make_record(
-            "solve", model=model, timer=timer, iters=res.iters,
-            residual=res.residual, converged=bool(res.converged),
-            path=args.path, out=out, operator=res.operator,
-            n_domain=res.n_domain, true_residual=res.true_residual,
-            refine_cycles=res.refine_cycles, device=args.device))
+            "solve", model=model, timer=timer,
+            converged=bool(res.converged), path=args.path, out=out,
+            **record))
     return 0 if res.converged else 1
 
 
@@ -344,13 +371,18 @@ def main(argv=None) -> int:
                                      description=__doc__)
     sub = parser.add_subparsers(dest="cmd", required=True)
 
-    p = sub.add_parser("solve", help="run the linear solver on an STdb file")
+    p = sub.add_parser("solve", help="run the solver on an STdb file")
     p.add_argument("path")
     p.add_argument("--out", help="write results here instead of overwriting")
     p.add_argument("--solver", choices=["CG", "Cholesky", "LU"],
-                   help="only CG is ported; the direct solvers raise")
+                   help="linear solver (Cholesky/LU: dense on the device up "
+                        "to 6000 DOF, banded on the host above)")
     p.add_argument("--tol", type=float)
     p.add_argument("--maxiter", type=int)
+    p.add_argument("--type", choices=["Linear_Statics", "Nonlinear_Statics"],
+                   help="analysis type (default: the model's)")
+    p.add_argument("--increments", type=int,
+                   help="load increments of a nonlinear solve")
     p.add_argument("--config", help="TOML run config (utils/config.py)")
     p.add_argument("--log-json", help="append a structured run record here")
     p.add_argument("--device", default="cuda",

@@ -16,7 +16,9 @@ from stan_tpu_torch.fem.operator import (StiffnessOperator, node_incidence,
 from stan_tpu_torch.fem.stencil import (StencilOperator, pack_tables,
                                         pack_theta_tables)
 from stan_tpu_torch.fem.structured import StructuredOperator
-from stan_tpu_torch.infer.forward import StencilForwardProblem
+from stan_tpu_torch.infer.forward import (ForwardProblem,
+                                          StencilForwardProblem,
+                                          StructuredFieldForwardProblem)
 
 
 def _float(a, dtype, device) -> torch.Tensor:
@@ -90,3 +92,24 @@ def stencil_forward_from_numpy(free_mask, d_lam, d_mu, f0, tables_lam,
         free_mask=grids[0], d_lam=grids[1], d_mu=grids[2], f0=grids[3],
         node_shape=tuple(int(n) for n in node_shape), cg_tol=float(cg_tol),
         cg_maxiter=int(cg_maxiter))
+
+
+def forward_problem_from_numpy(op0: StiffnessOperator, f0, cg_tol, cg_maxiter
+                               ) -> ForwardProblem:
+    """ForwardProblem from stan_tpu.infer.forward.ForwardProblem's fields:
+    op0 the port's operator holding the reference's op0 (e.g. from
+    stiffness_operator_from_numpy), f0 [nnode, 3] as a numpy array."""
+    return ForwardProblem(op0=op0, f0=_float(f0, op0.dtype, op0.device),
+                          cg_tol=float(cg_tol), cg_maxiter=int(cg_maxiter))
+
+
+def field_forward_from_numpy(op0: StructuredOperator, f0, cg_tol, cg_maxiter
+                             ) -> StructuredFieldForwardProblem:
+    """StructuredFieldForwardProblem from stan_tpu.infer.forward.
+    StructuredFieldForwardProblem's fields: op0 the port's structured
+    operator holding the reference's op0 (e.g. from
+    structured_operator_from_numpy), f0 [3, nnx, nny, nnz] as a numpy
+    array."""
+    return StructuredFieldForwardProblem(
+        op0=op0, f0=_float(f0, op0.dtype, op0.device).contiguous(),
+        cg_tol=float(cg_tol), cg_maxiter=int(cg_maxiter))

@@ -11,6 +11,12 @@ With H = u_e . dN^T the displacement gradient,
 Voigt order (xx, yy, zz, xy, yz, xz) with engineering shear, as in the
 JAX package. Float32 contractions run in full float32: the entry points
 switch TF32 off on the CUDA path (fem/operator.resolve_device).
+
+The element action and the strains take leading batch axes on u_e [..., E,
+nn, 3] and D_e [..., E, 6, 6] (a chain axis of the calibration forward
+problems); the geometry dN, detJw is shared. The explicit B matrix and
+the element stiffness (b_matrix, element_stiffness) serve the assembled
+direct path only.
 """
 
 from __future__ import annotations
@@ -57,9 +63,41 @@ def element_geometry(coords_e: torch.Tensor, form: ElementFormulation):
     return dN, det3(J) * w[None, :]
 
 
+def b_matrix(dN: torch.Tensor) -> torch.Tensor:
+    """Explicit B [..., 6, 3*nn] from gradients dN [..., 3, nn]; column
+    3*i + j is node i, direction j."""
+    nn = dN.shape[-1]
+    B = dN.new_zeros((*dN.shape[:-2], 6, 3, nn))
+    dx, dy, dz = dN[..., 0, :], dN[..., 1, :], dN[..., 2, :]
+    for row, col, d in ((0, 0, dx), (1, 1, dy), (2, 2, dz), (3, 0, dy),
+                        (3, 1, dx), (4, 1, dz), (4, 2, dy), (5, 0, dz),
+                        (5, 2, dx)):
+        B[..., row, col, :] = d
+    return B.transpose(-1, -2).reshape(*dN.shape[:-2], 6, 3 * nn)
+
+
+def element_stiffness(coords_e: torch.Tensor, D_e: torch.Tensor,
+                      form: ElementFormulation) -> torch.Tensor:
+    """Element stiffness ke [E, 3nn, 3nn] = sum_g B^T D B detJ w."""
+    dN, detJw = element_geometry(coords_e, form)
+    B = b_matrix(dN)  # [E, G, 6, 3nn]
+    DB = torch.einsum("eij,egjb->egib", D_e, B)
+    return torch.einsum("egia,egib,eg->eab", B, DB, detJw)
+
+
+def element_stiffness_diag(coords_e: torch.Tensor, D_e: torch.Tensor,
+                           form: ElementFormulation) -> torch.Tensor:
+    """diag(ke) [E, 3nn] without forming ke."""
+    dN, detJw = element_geometry(coords_e, form)
+    B = b_matrix(dN)
+    DB = torch.einsum("eij,egja->egia", D_e, B)
+    return torch.einsum("egia,egia,eg->ea", B, DB, detJw)
+
+
 def strain_at_gauss(dN: torch.Tensor, u_e: torch.Tensor) -> torch.Tensor:
-    """Small-strain Voigt vector eps [E, G, 6] from u_e [E, nn, 3]."""
-    H = torch.einsum("egkn,enj->egkj", dN, u_e)
+    """Small-strain Voigt vector eps [..., E, G, 6] from u_e [..., E, nn,
+    3]."""
+    H = torch.einsum("egkn,...enj->...egkj", dN, u_e)
     return torch.stack(
         [
             H[..., 0, 0],
@@ -84,10 +122,10 @@ def voigt_to_tensor(s: torch.Tensor) -> torch.Tensor:
 
 
 def internal_force(dN, detJw, D_e, u_e) -> torch.Tensor:
-    """Element internal force f_e [E, nn, 3] = B^T (D B u_e) detJ w."""
-    sig = torch.einsum("eij,egj->egi", D_e, strain_at_gauss(dN, u_e))
-    T = voigt_to_tensor(sig)  # [E, G, 3, 3]
-    return torch.einsum("egkn,egjk,eg->enj", dN, T, detJw)
+    """Element internal force f_e [..., E, nn, 3] = B^T (D B u_e) detJ w."""
+    sig = torch.einsum("...eij,...egj->...egi", D_e, strain_at_gauss(dN, u_e))
+    T = voigt_to_tensor(sig)  # [..., E, G, 3, 3]
+    return torch.einsum("egkn,...egjk,eg->...enj", dN, T, detJw)
 
 
 def recover_stress_strain(dN, detJw, D_e, u_e, form: ElementFormulation):

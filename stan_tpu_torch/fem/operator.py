@@ -8,6 +8,10 @@ CUDA adds with atomics in a varying order). Fixed DOFs are masked, so the
 operator is A = M K M + (I - M) and the right-hand side M f, with M the
 free mask.
 
+The operator also acts on a batch of systems: with D [B, E, 6, 6] (one
+material field per system) it maps u [B, nnode, 3] to [B, nnode, 3]; the
+geometry and the masks are shared.
+
 Dtype and device policy (the counterpart of the JAX package's
 default_dtype): the port computes in float32 on the card, with float64
 certification of the result, and in float64 wherever the caller asks for it
@@ -78,17 +82,19 @@ class StiffnessOperator:
         return self.dN.device
 
     def gather(self, u: torch.Tensor) -> torch.Tensor:
-        """u[nnode, 3] -> u_e[E, nn, 3]."""
-        return u[self.conn]
+        """u[..., nnode, 3] -> u_e[..., E, nn, 3]."""
+        return u[..., self.conn, :]
 
     def scatter_add(self, f_e: torch.Tensor) -> torch.Tensor:
-        """f_e[E, nn, 3] -> f[nnode, 3], deterministic (incidence gather)."""
-        flat = f_e.reshape(-1, 3)
-        padded = torch.cat([flat, flat.new_zeros((1, 3))], dim=0)
-        return padded[self.inc_idx].sum(dim=1)
+        """f_e[..., E, nn, 3] -> f[..., nnode, 3], deterministic (incidence
+        gather)."""
+        flat = f_e.reshape(*f_e.shape[:-3], -1, 3)
+        padded = torch.cat([flat, flat.new_zeros((*flat.shape[:-2], 1, 3))],
+                           dim=-2)
+        return padded[..., self.inc_idx, :].sum(dim=-2)
 
     def apply_raw(self, u: torch.Tensor) -> torch.Tensor:
-        """K.u without BC masking; u and the result are [nnode, 3]."""
+        """K.u without BC masking; u and the result are [..., nnode, 3]."""
         f_e = kernels.internal_force(self.dN, self.detJw, self.D,
                                      self.gather(u))
         return self.scatter_add(f_e)
@@ -106,7 +112,8 @@ class StiffnessOperator:
 
 
 def _element_diag(dN, detJw, D):
-    """diag(ke) as [E, nn, 3], from the gradients without forming B.
+    """diag(ke) as [..., E, nn, 3] for D [..., E, 6, 6], from the gradients
+    without forming B.
 
     Column (n, j) of B has nonzeros in Voigt rows j and the two shear rows
     that involve direction j.
@@ -120,8 +127,8 @@ def _element_diag(dN, detJw, D):
     ]
     out = []
     for c in cols:  # c: [E, G, nn, 6]
-        dc = torch.einsum("eij,egnj->egni", D, c)
-        out.append(torch.einsum("egni,egni,eg->en", c, dc, detJw))
+        dc = torch.einsum("...eij,egnj->...egni", D, c)
+        out.append(torch.einsum("egni,...egni,eg->...en", c, dc, detJw))
     return torch.stack(out, dim=-1)
 
 

@@ -10,6 +10,9 @@ meshgen order, gather and scatter become slices:
   f   = 8 zero-padded shifted reads                      (no scatter)
 
 The grid layout is channel-first [3, nnx, nny, nnz], as in the JAX package.
+Grids may carry leading batch axes ([B, 3, nnx, nny, nnz], with lam_e and
+mu_e [B, nx, ny, nz]): one system per chain of the calibration's field
+forward problem.
 The unit-coefficient element stiffnesses are computed in float64 on the
 host (fem.hostops) and cast to the operator dtype; Lame and D come from
 hostops.d_np, so this module does not depend on the inference layer.
@@ -80,31 +83,40 @@ class StructuredOperator:
         return u_grid.permute(1, 2, 3, 0).reshape(-1, 3)
 
     def gather_elements(self, u: torch.Tensor) -> torch.Tensor:
-        """u [3,nnx,nny,nnz] -> u_e [24,nx,ny,nz]; slot 3*a + c is corner a,
-        component c (the element DOF order of the general kernels)."""
+        """u [...,3,nnx,nny,nnz] -> u_e [...,24,nx,ny,nz]; slot 3*a + c is
+        corner a, component c (the element DOF order of the general
+        kernels)."""
         nx, ny, nz = self.nelems
-        return torch.cat([u[:, ox:ox + nx, oy:oy + ny, oz:oz + nz]
-                          for ox, oy, oz in _CORNERS], dim=0)
+        return torch.cat([u[..., ox:ox + nx, oy:oy + ny, oz:oz + nz]
+                          for ox, oy, oz in _CORNERS], dim=-4)
 
     def scatter_elements(self, f_e: torch.Tensor) -> torch.Tensor:
-        """f_e [24,nx,ny,nz] -> f [3,nnx,nny,nnz]: node (i,j,k) sums f_e[a]
-        at element (i,j,k) - corner_a, as 8 zero-padded shifted slabs."""
+        """f_e [...,24,nx,ny,nz] -> f [...,3,nnx,nny,nnz]: node (i,j,k) sums
+        f_e[a] at element (i,j,k) - corner_a, as 8 zero-padded shifted
+        slabs."""
         total = None
         for a, (ox, oy, oz) in enumerate(_CORNERS):
             # corner offset 1 -> zero in front; 0 -> zero behind
-            term = F.pad(f_e[3 * a:3 * a + 3],
+            term = F.pad(f_e[..., 3 * a:3 * a + 3, :, :, :],
                          (oz, 1 - oz, oy, 1 - oy, ox, 1 - ox))
             total = term if total is None else total + term
         return total
 
+    def unit_products(self, u: torch.Tensor) -> torch.Tensor:
+        """[ke_lam . u_e, ke_mu . u_e] per element, [..., 2, 24, nx, ny, nz]
+        (one stacked matmul)."""
+        u_e = self.gather_elements(u)
+        batch, n = u_e.shape[:-4], u_e.shape[-3:]
+        ke2 = torch.cat([self.ke_lam, self.ke_mu], dim=0)
+        f2 = torch.matmul(ke2, u_e.reshape(*batch, 24, -1))
+        return f2.reshape(*batch, 2, 24, *n)
+
     def apply_raw(self, u: torch.Tensor) -> torch.Tensor:
         """K.u on the node grid (no BC masking)."""
-        nx, ny, nz = self.nelems
-        u_e = self.gather_elements(u).reshape(24, nx * ny * nz)
-        ke2 = torch.cat([self.ke_lam, self.ke_mu], dim=0)
-        f2 = torch.matmul(ke2, u_e).reshape(2, 24, nx, ny, nz)
-        return self.scatter_elements(self.lam_e[None] * f2[0]
-                                     + self.mu_e[None] * f2[1])
+        f2 = self.unit_products(u)
+        return self.scatter_elements(
+            self.lam_e.unsqueeze(-4) * f2[..., 0, :, :, :, :]
+            + self.mu_e.unsqueeze(-4) * f2[..., 1, :, :, :, :])
 
     def apply(self, u: torch.Tensor) -> torch.Tensor:
         """Masked SPD action on the grid: M K (M u) + (I - M) u."""
@@ -115,8 +127,9 @@ class StructuredOperator:
         """Masked Jacobi diagonal on the node grid."""
         d_lam = torch.diagonal(self.ke_lam)[:, None, None, None]
         d_mu = torch.diagonal(self.ke_mu)[:, None, None, None]
-        d_e = self.lam_e[None] * d_lam + self.mu_e[None] * d_mu
-        d = self.scatter_elements(d_e.expand(24, *self.nelems))
+        d_e = (self.lam_e.unsqueeze(-4) * d_lam
+               + self.mu_e.unsqueeze(-4) * d_mu)
+        d = self.scatter_elements(d_e)
         return self.free_mask * d + (1.0 - self.free_mask)
 
 

@@ -3,7 +3,8 @@
 Port of stan_tpu/infer/calibrate.py (CalibrationProblem, make_problem).
 Given noisy displacement observations at selected DOFs, infer θ = (log E,
 ν, log load scale) with the linear FEM solve as the forward model
-(infer/forward.py, implicit-adjoint gradients). The log posterior is
+(infer/forward.py, implicit-adjoint gradients), whichever of the three
+forward problems build_forward picks for the model. The log posterior is
 chain-batched: θ [C, 3] -> [C], one chain-batched solve for all chains.
 
 Priors (weakly informative):
@@ -31,7 +32,7 @@ from stan_tpu_torch.infer import forward as fwd_mod
 
 @dataclasses.dataclass
 class CalibrationProblem:
-    fwd: fwd_mod.StencilForwardProblem
+    fwd: object  # a forward problem of infer/forward.py
     obs_idx: np.ndarray  # [n_obs, 2] (node, dir) indices
     y: torch.Tensor  # [n_obs] observations, on the forward's device
     sigma_obs: float
@@ -41,20 +42,25 @@ class CalibrationProblem:
     infer_load: bool = False  # fix log s = 0 unless enabled
 
     def __post_init__(self):
-        # (dir, i, j, k) of every observation on the node grid (meshgen
-        # numbering: node = i*nny*nnz + j*nnz + k), on the device once, so
-        # the gather in u_obs copies nothing from the host.
-        _, nny, nnz = self.fwd.node_shape
+        # Each observation's index into the forward's layout, on the device
+        # once, so the gather in u_obs copies nothing from the host: (node,
+        # dir) for the general forward, (dir, i, j, k) on the node grid of
+        # the structured ones (meshgen numbering: node = i*nny*nnz + j*nnz
+        # + k).
         nodes, dirs = self.obs_idx[:, 0], self.obs_idx[:, 1]
-        idx = np.stack([dirs, nodes // (nny * nnz), (nodes // nnz) % nny,
-                        nodes % nnz])
-        self._grid_idx = tuple(torch.as_tensor(idx, device=self.fwd.device))
+        if isinstance(self.fwd, fwd_mod.ForwardProblem):
+            idx = np.stack([nodes, dirs])
+        else:
+            _, nny, nnz = self.fwd.node_shape
+            idx = np.stack([dirs, nodes // (nny * nnz),
+                            (nodes // nnz) % nny, nodes % nnz])
+        self._idx = tuple(torch.as_tensor(idx, device=self.fwd.device))
 
     def u_obs(self, theta: torch.Tensor) -> torch.Tensor:
         """Forward displacements at the observed DOFs, [C, n_obs]; θ rows
         are (log E, ν, log s)."""
         u = fwd_mod.solve_theta(self.fwd, theta)
-        return u[(slice(None),) + self._grid_idx]
+        return u[(slice(None),) + self._idx]
 
     def log_posterior(self, theta: torch.Tensor) -> torch.Tensor:
         """Unnormalised log posterior [C] of θ [C, 3] in the unconstrained
@@ -121,12 +127,15 @@ def make_problem(
     device="cuda",
     cg_tol: float = 1.0e-8,
     infer_load: bool = False,
+    prefer_stencil: bool = True,
     **prior_kwargs,
 ) -> CalibrationProblem:
     """The calibration posterior of `model` against observations y at
-    (obs_nodes, obs_dirs), on `device` in `dtype` (float32 by default)."""
+    (obs_nodes, obs_dirs), on `device` in `dtype` (float32 by default),
+    with the forward problem build_forward routes to (prefer_stencil=False:
+    the general one)."""
     fwd = fwd_mod.build_forward(model, dtype=dtype, device=device,
-                                cg_tol=cg_tol)
+                                cg_tol=cg_tol, prefer_stencil=prefer_stencil)
     obs_idx = np.stack([np.asarray(obs_nodes, np.int64),
                         np.asarray(obs_dirs, np.int64)], axis=1)
     return CalibrationProblem(

@@ -1,26 +1,28 @@
-"""Differentiable FEM forward model for calibration, on the stencil path.
+"""Differentiable FEM forward models for calibration.
 
-Port of stan_tpu/infer/forward.py for its stencil branch. The calibration
-treats the linear static solve as a forward model: θ = (log E, ν, log load
-scale) -> displacement field u(θ). On a structured HEX8 grid with one
-homogeneous material (the calibration setting: θ supplies the material),
-the assembled stiffness is linear in the Lamé constants,
+Port of stan_tpu/infer/forward.py (its single-device forward problems).
+The calibration treats the linear static solve as a forward model: θ =
+(log E, ν, log load scale) -> displacement field u(θ). Chains are an
+explicit leading axis: one θ is the case B = 1. Three forward problems,
+chosen by build_forward as the reference chooses them:
 
-    K(θ)·u = λ·K_λu + μ·K_μu,
+- StencilForwardProblem: a structured HEX8 grid with one homogeneous
+  material. The assembled stiffness is linear in the Lamé constants,
+  K(θ)·u = λ·K_λu + μ·K_μu, so the matvec is one pass of the theta sweep
+  (fem/stencil.theta_apply, a hand-written CUDA kernel) over fixed unit-λ /
+  unit-μ tables; λ, μ are [B].
+- StructuredFieldForwardProblem: a structured grid with per-element Lamé
+  fields λ_e, μ_e ([B, nx, ny, nz]) on the structured operator (slice
+  gather, one stacked matmul, shifted-read scatter; plain torch).
+- ForwardProblem: any mesh, with a per-element D_e ([B, E, 6, 6]) on the
+  general gather/scatter operator (plain torch).
 
-so the matvec is one pass of the theta sweep (fem/stencil.theta_apply) over
-fixed unit-λ / unit-μ tables. Chains are an explicit leading axis: λ, μ are
-[B] and grids [B, 3, X, Y, Z]; one θ is the case B = 1.
-
-Gradients flow through the solve implicitly, as jax.lax.custom_linear_solve
-(symmetric=True) gives them in the reference: the backward pass is one more
-chain-batched PCG solve with the same SPD operator on the masked cotangent
-(an adjoint solve), not CG unrolled.
-
-Only the stencil forward is ported. build_forward raises
-NotImplementedError where the reference would take the general
-(ForwardProblem) or per-element-field (StructuredFieldForwardProblem) path:
-ROADMAP.md queue 1, item 8.
+Gradients flow through each solve implicitly, as jax.lax.custom_linear_solve
+(symmetric=True) gives them in the reference: a torch.autograd.Function
+whose backward is one more chain-batched PCG solve with the same SPD
+operator on the masked cotangent (an adjoint solve), not CG unrolled.
+Every solve records its iterations and convergence in the problem's
+SolveStats.
 """
 
 from __future__ import annotations
@@ -32,8 +34,9 @@ import numpy as np
 import torch
 
 from stan_tpu_torch.core.model import FEModel
-from stan_tpu_torch.fem import stencil, structured
-from stan_tpu_torch.fem.operator import default_dtype
+from stan_tpu_torch.fem import kernels, stencil, structured
+from stan_tpu_torch.fem.operator import (StiffnessOperator, build_operator,
+                                         default_dtype)
 from stan_tpu_torch.solvers import cg as cg_mod
 
 
@@ -55,6 +58,18 @@ def lame_from_E_nu(E, nu):
     lam = E * nu / ((1.0 - 2.0 * nu) * (1.0 + nu))
     mu = 0.5 * E / (1.0 + nu)
     return lam, mu
+
+
+def d_matrix_from_lame(lam: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
+    """Isotropic 6x6 D [..., 6, 6] from (λ, μ) of one shape [...]."""
+    lam, mu = torch.broadcast_tensors(torch.as_tensor(lam),
+                                      torch.as_tensor(mu))
+    eye3 = torch.eye(3, dtype=lam.dtype, device=lam.device)
+    top = lam[..., None, None] + 2.0 * mu[..., None, None] * eye3
+    zero = torch.zeros_like(top)
+    return torch.cat([torch.cat([top, zero], dim=-1),
+                      torch.cat([zero, mu[..., None, None] * eye3], dim=-1)],
+                     dim=-2)
 
 
 @dataclasses.dataclass
@@ -197,6 +212,174 @@ class _StencilSolve(torch.autograd.Function):
         return g_lam, g_mu, (w if ctx.needs_input_grad[2] else None), None
 
 
+@dataclasses.dataclass(frozen=True)
+class ForwardProblem:
+    """θ -> u forward model on the general gather/scatter operator, for any
+    mesh: the geometry (conn, dN, detJw, masks) of op0 is fixed and the
+    per-element D_e varies. solve(D_e [B, E, 6, 6], f [B, nnode, 3]) is
+    implicitly differentiable in D_e and f."""
+
+    op0: StiffnessOperator  # geometry carrier; its D is replaced per solve
+    f0: torch.Tensor  # [nnode, 3] unit load vector
+    cg_tol: float
+    cg_maxiter: int
+    stats: SolveStats = dataclasses.field(default_factory=SolveStats)
+
+    @property
+    def dtype(self):
+        return self.op0.dtype
+
+    @property
+    def device(self):
+        return self.op0.device
+
+    @property
+    def nelem(self) -> int:
+        return self.op0.conn.shape[0]
+
+    def operator_with(self, D_e: torch.Tensor) -> StiffnessOperator:
+        return dataclasses.replace(self.op0, D=D_e)
+
+    def _pcg(self, op, rhs) -> cg_mod.CGResult:
+        return cg_mod.pcg(op.apply, rhs, diag=op.diagonal(), tol=self.cg_tol,
+                          maxiter=self.cg_maxiter, ndof=3 * op.nnode,
+                          batched=True)
+
+    def solve(self, D_e: torch.Tensor, f: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+        """Solve K(D_e) u = M f: D_e [E, 6, 6] and f [nnode, 3] give u
+        [nnode, 3]; D_e [B, E, 6, 6] and f [B, nnode, 3] give B solves, u
+        [B, nnode, 3]. f None: the unit load."""
+        if D_e.dim() == 3:
+            return self.solve(D_e[None], None if f is None else f[None])[0]
+        if f is None:
+            f = self.f0.expand(D_e.shape[0], *self.f0.shape)
+        return _GeneralSolve.apply(D_e, f, self)
+
+
+class _GeneralSolve(torch.autograd.Function):
+    """u = A(D)⁻¹ (M f), A = M K(D) M + (I - M), chain-batched.
+
+    Backward: w = A⁻¹ (M ū) (the adjoint solve); ∂/∂f = M w and, per element,
+    ∂/∂D_e = -Σ_g detJ w_g ε(M w)_g ε(M u)_gᵀ, the derivative of -⟨M w,
+    K(D)(M u)⟩ = -Σ_e Σ_g detJ w_g ε(w)ᵀ D_e ε(u).
+    """
+
+    @staticmethod
+    def forward(ctx, D_e, f, prob):
+        op = prob.operator_with(D_e)
+        res = prob._pcg(op, op.free_mask * f)
+        prob.stats.record("forward", res)
+        ctx.save_for_backward(D_e, res.u)
+        ctx.prob = prob
+        return res.u
+
+    @staticmethod
+    def backward(ctx, ct):
+        D_e, u = ctx.saved_tensors
+        prob = ctx.prob
+        op = prob.operator_with(D_e)
+        m = op.free_mask
+        res = prob._pcg(op, m * ct)
+        prob.stats.record("adjoint", res)
+        w = m * res.u
+        g_D = None
+        if ctx.needs_input_grad[0]:
+            eps_w = kernels.strain_at_gauss(op.dN, op.gather(w))
+            eps_u = kernels.strain_at_gauss(op.dN, op.gather(m * u))
+            g_D = -torch.einsum("...egi,...egj,eg->...eij", eps_w, eps_u,
+                                op.detJw)
+        return g_D, (w if ctx.needs_input_grad[1] else None), None
+
+
+@dataclasses.dataclass(frozen=True)
+class StructuredFieldForwardProblem:
+    """θ -> u forward model with per-element Lamé fields on the structured
+    operator (fem/structured.py): a heterogeneous material on a structured
+    HEX8 grid, which the stencil forward cannot take. solve(λ_e, μ_e, f) is
+    implicitly differentiable in the fields and f."""
+
+    op0: structured.StructuredOperator  # geometry; lam_e, mu_e replaced
+    f0: torch.Tensor  # [3, nnx, nny, nnz] unit load grid
+    cg_tol: float
+    cg_maxiter: int
+    stats: SolveStats = dataclasses.field(default_factory=SolveStats)
+
+    @property
+    def dtype(self):
+        return self.op0.dtype
+
+    @property
+    def device(self):
+        return self.op0.device
+
+    @property
+    def node_shape(self):
+        return self.op0.node_shape
+
+    @property
+    def nelems(self):
+        return self.op0.nelems
+
+    def to_flat(self, u_grid: torch.Tensor) -> torch.Tensor:
+        """[..., 3, nnx, nny, nnz] -> [..., nnode, 3]."""
+        return u_grid.movedim(-4, -1).reshape(*u_grid.shape[:-4], -1, 3)
+
+    def operator_with(self, lam_e, mu_e) -> structured.StructuredOperator:
+        return dataclasses.replace(self.op0, lam_e=lam_e, mu_e=mu_e)
+
+    def _pcg(self, op, rhs) -> cg_mod.CGResult:
+        return cg_mod.pcg(op.apply, rhs, diag=op.diagonal(), tol=self.cg_tol,
+                          maxiter=self.cg_maxiter,
+                          ndof=int(3 * np.prod(self.node_shape)),
+                          batched=True)
+
+    def solve(self, lam_e: torch.Tensor, mu_e: torch.Tensor,
+              f: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Solve K(λ_e, μ_e) u = M f on the grid: fields [nx, ny, nz] and f
+        [3, nnx, nny, nnz] give u [3, nnx, nny, nnz]; fields [B, nx, ny,
+        nz] and f [B, 3, nnx, nny, nnz] give B solves. f None: the unit
+        load."""
+        if lam_e.dim() == 3:
+            return self.solve(lam_e[None], mu_e[None],
+                              None if f is None else f[None])[0]
+        if f is None:
+            f = self.f0.expand(lam_e.shape[0], *self.f0.shape)
+        return _FieldSolve.apply(lam_e, mu_e, f, self)
+
+
+class _FieldSolve(torch.autograd.Function):
+    """u = A(λ_e, μ_e)⁻¹ (M f), chain-batched. Backward: w = A⁻¹ (M ū); ∂/∂f
+    = M w; per element ∂/∂λ_e = -⟨(M w)_e, ke_λ (M u)_e⟩ and ∂/∂μ_e the
+    same with ke_μ."""
+
+    @staticmethod
+    def forward(ctx, lam_e, mu_e, f, prob):
+        op = prob.operator_with(lam_e, mu_e)
+        res = prob._pcg(op, (op.free_mask * f).contiguous())
+        prob.stats.record("forward", res)
+        ctx.save_for_backward(lam_e, mu_e, res.u)
+        ctx.prob = prob
+        return res.u
+
+    @staticmethod
+    def backward(ctx, ct):
+        lam_e, mu_e, u = ctx.saved_tensors
+        prob = ctx.prob
+        op = prob.operator_with(lam_e, mu_e)
+        m = op.free_mask
+        res = prob._pcg(op, (m * ct).contiguous())
+        prob.stats.record("adjoint", res)
+        w = m * res.u
+        g_lam = g_mu = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            f2 = op.unit_products(m * u)  # [B, 2, 24, nx, ny, nz]
+            w_e = op.gather_elements(w)  # [B, 24, nx, ny, nz]
+            g_lam = -(w_e * f2[:, 0]).sum(dim=1)
+            g_mu = -(w_e * f2[:, 1]).sum(dim=1)
+        return g_lam, g_mu, (w if ctx.needs_input_grad[2] else None), None
+
+
 def _stencil_forward_pieces(model: FEModel, dtype, device):
     """The structured base operator, unit-coefficient signature tables, raw
     Jacobi diagonal grids and the unit load grid; None if the mesh does not
@@ -241,16 +424,38 @@ def build_stencil_forward(model: FEModel, *, dtype=None, device="cuda",
         node_shape=base.node_shape, cg_tol=cg_tol, cg_maxiter=cg_maxiter)
 
 
+def build_structured_field_forward(
+        model: FEModel, *, dtype=None, device="cuda", cg_tol: float = 1.0e-8,
+        cg_maxiter: int = 0) -> Optional[StructuredFieldForwardProblem]:
+    """Build the per-element-field forward model, or None if the mesh is
+    not a structured HEX8 grid in meshgen order. op0 holds the model's own
+    Lamé fields."""
+    base = structured.build_structured_operator(model, dtype=dtype,
+                                                device=device)
+    if base is None:
+        return None
+    f0 = base.to_grid(torch.as_tensor(model.load_vector(), dtype=base.dtype,
+                                      device=base.device)).contiguous()
+    if cg_maxiter == 0:
+        cg_maxiter = _default_infer_maxiter(model.nnode)
+    return StructuredFieldForwardProblem(op0=base, f0=f0, cg_tol=cg_tol,
+                                         cg_maxiter=cg_maxiter)
+
+
 def build_forward(model: FEModel, *, dtype=None, device="cuda",
-                  cg_tol: float = 1.0e-8, cg_maxiter: int = 0
-                  ) -> StencilForwardProblem:
-    """Build the θ -> u forward model where the reference would take its
-    stencil path: a structured HEX8 grid whose elements all use one
-    (E, ν). Raises ValueError if an element's material id is missing from
-    model.materials (the reference skips such ids and may then take the
-    stencil path, which ignores the material table), and
-    NotImplementedError where the reference would take a forward model the
-    port does not have yet."""
+                  cg_tol: float = 1.0e-8, cg_maxiter: int = 0,
+                  prefer_stencil: bool = True):
+    """Build the θ -> u forward model, routed as the reference routes it:
+    with prefer_stencil, a homogeneous material (one (E, ν) over the
+    elements) on a structured HEX8 grid takes the stencil forward, any
+    other structured grid the per-element-field forward; everything else,
+    and prefer_stencil=False, the general forward (ForwardProblem).
+
+    Raises ValueError if an element's material id is missing from
+    model.materials (the reference skips such ids in its homogeneity test
+    and may then take the stencil path, which ignores the material
+    table)."""
+    dtype = dtype or default_dtype()
     used = (set(np.asarray(model.elem_mat).tolist())
             if model.elem_mat is not None else set())
     missing = sorted(i for i in used if i not in model.materials)
@@ -261,42 +466,56 @@ def build_forward(model: FEModel, *, dtype=None, device="cuda",
             f"ignore them")
     homog = len({(model.materials[i].E, model.materials[i].poisson)
                  for i in used}) <= 1
-    later = ("is not ported yet: ROADMAP.md queue 1, item 8 (the general "
-             "path and the other forward problems)")
-    if not homog:
-        raise NotImplementedError(
-            f"a heterogeneous material needs the per-element-field forward "
-            f"(StructuredFieldForwardProblem), which {later}")
-    fwd = build_stencil_forward(model, dtype=dtype, device=device,
-                                cg_tol=cg_tol, cg_maxiter=cg_maxiter)
-    if fwd is None:
-        raise NotImplementedError(
-            f"the mesh is not a structured HEX8 grid with >= 3 nodes per "
-            f"axis; the general forward (ForwardProblem) {later}")
-    return fwd
+    kw = dict(dtype=dtype, device=device, cg_tol=cg_tol,
+              cg_maxiter=cg_maxiter)
+    if prefer_stencil:
+        fwd = build_stencil_forward(model, **kw) if homog else None
+        fwd = fwd or build_structured_field_forward(model, **kw)
+        if fwd is not None:
+            return fwd
+    op = build_operator(model.coords, model.conn, model.elem_d_matrices(),
+                        model.fix_mask(), model.formulation(), dtype=dtype,
+                        device=device)
+    if cg_maxiter == 0:
+        cg_maxiter = _default_infer_maxiter(model.nnode)
+    return ForwardProblem(
+        op0=op, f0=torch.as_tensor(model.load_vector(), dtype=dtype,
+                                   device=op.device),
+        cg_tol=cg_tol, cg_maxiter=cg_maxiter)
 
 
-def solve_theta(fwd: StencilForwardProblem, theta: torch.Tensor
-                ) -> torch.Tensor:
-    """θ [B, 3] = (log E, ν, log s) rows -> displacement grids [B, 3, X, Y,
-    Z] (homogeneous material, load scaled by s), differentiable in θ."""
+def solve_theta(fwd, theta: torch.Tensor) -> torch.Tensor:
+    """θ [B, 3] = (log E, ν, log s) rows -> displacements in the forward's
+    layout, differentiable in θ: grids [B, 3, X, Y, Z] for the stencil and
+    field forwards, [B, nnode, 3] for the general one. The material is
+    homogeneous (broadcast over the elements) and the load is scaled by
+    s."""
     lam, mu = lame_from_E_nu(torch.exp(theta[:, 0]), theta[:, 1])
-    scale = torch.exp(theta[:, 2]).to(fwd.dtype).view(-1, 1, 1, 1, 1)
-    return fwd.solve(lam.to(fwd.dtype), mu.to(fwd.dtype), fwd.f0 * scale)
+    lam, mu = lam.to(fwd.dtype), mu.to(fwd.dtype)
+    s = torch.exp(theta[:, 2]).to(fwd.dtype)
+    B = theta.shape[0]
+    if isinstance(fwd, StencilForwardProblem):
+        return fwd.solve(lam, mu, fwd.f0 * s.view(B, 1, 1, 1, 1))
+    if isinstance(fwd, StructuredFieldForwardProblem):
+        shape = (B, *fwd.nelems)
+        return fwd.solve(lam.view(B, 1, 1, 1).expand(shape),
+                         mu.view(B, 1, 1, 1).expand(shape),
+                         fwd.f0 * s.view(B, 1, 1, 1, 1))
+    D = d_matrix_from_lame(lam, mu)  # [B, 6, 6]
+    return fwd.solve(D[:, None].expand(B, fwd.nelem, 6, 6),
+                     fwd.f0 * s.view(B, 1, 1))
 
 
 def displacement_fn(fwd, nelem: int) -> Callable[[torch.Tensor],
                                                  torch.Tensor]:
     """θ = (log E, ν, log load scale) -> u [nnode, 3]; θ of shape [B, 3]
-    gives u [B, nnode, 3]. nelem is kept for the reference's signature."""
-    if not isinstance(fwd, StencilForwardProblem):
-        raise NotImplementedError(
-            f"{type(fwd).__name__} is not ported yet: ROADMAP.md queue 1, "
-            f"item 8")
+    gives u [B, nnode, 3]. Serves the three forward types; nelem is kept
+    for the reference's signature (the general forward reads its own)."""
+    to_flat = getattr(fwd, "to_flat", lambda u: u)
 
     def u_of(theta):
         if theta.dim() == 1:
-            return fwd.to_flat(solve_theta(fwd, theta[None]))[0]
-        return fwd.to_flat(solve_theta(fwd, theta))
+            return to_flat(solve_theta(fwd, theta[None]))[0]
+        return to_flat(solve_theta(fwd, theta))
 
     return u_of

@@ -189,6 +189,50 @@ def test_cli_solve_with_config_and_log(tmp_path):
     assert [p["phase"] for p in rec["phases"]][0] == "Read database"
 
 
+def test_cli_solve_nonlinear(tmp_path, capsys):
+    """solve --type Nonlinear_Statics --increments 2 on a tiny beam: the
+    Newton summary, both increments stored in the STdb, the run record;
+    the result is the library's."""
+    from stan_tpu_torch.analysis.nonlinear import solve_nonlinear_statics
+
+    path, _ = _stdb(tmp_path, 2, 2, 2)
+    out, logp = str(tmp_path / "nl.STdb"), str(tmp_path / "run.jsonl")
+    assert cli.main(["solve", path, "--type", "Nonlinear_Statics",
+                     "--increments", "2", "--out", out, "--log-json", logp,
+                     "--device", "cpu"]) == 0
+    text = capsys.readouterr().out
+    assert "Increment 2:" in text and "Newton iterations" in text
+    solved = stdb.read(out)
+    assert solved.analysis.type == "Nonlinear_Statics"
+    assert solved.disp.shape[0] == 3 and solved.analysis.result_step_no == 2
+    model = stdb.read(path)
+    model.analysis.type, model.analysis.inc_numb = "Nonlinear_Statics", 2
+    lib = solve_nonlinear_statics(model, device="cpu")
+    np.testing.assert_array_equal(solved.disp[-1], lib.u)
+    rec = json.loads(open(logp).read().splitlines()[0])
+    assert rec["kind"] == "solve" and rec["converged"]
+    assert rec["newton_iters"] == lib.newton_iters.tolist()
+    assert max(rec["residuals"]) <= 1e-3
+    assert [p["phase"] for p in rec["phases"]][2:4] == ["Increment 1",
+                                                        "Increment 2"]
+
+
+@pytest.mark.parametrize("solver", ["Cholesky", "LU"])
+def test_cli_solve_direct(tmp_path, capsys, solver):
+    path, _ = _stdb(tmp_path, 3, 2, 2)
+    logp = str(tmp_path / "run.jsonl")
+    assert cli.main(["solve", path, "--solver", solver, "--log-json", logp,
+                     "--device", "cpu"]) == 0
+    assert f"Operator: dense-{solver.lower()}" in capsys.readouterr().out
+    rec = json.loads(open(logp).read().splitlines()[0])
+    assert rec["operator"] == f"dense-{solver.lower()}"
+    assert rec["true_residual"] < 1e-5  # float32 factorisation
+    model = stdb.read(path)
+    model.analysis.lin_solver = solver
+    lib = solve_linear_statics(model, device="cpu")
+    np.testing.assert_array_equal(stdb.read(path).disp[-1], lib.u)
+
+
 def test_cli_export(tmp_path, capsys):
     path, m = _stdb(tmp_path, 2, 2, 2, solved=True)
     prefix = str(tmp_path / "res")

@@ -173,15 +173,20 @@ def test_capped_solves_are_counted():
 
 
 def test_build_forward_refusals():
+    """The missing-material refusal stays; a heterogeneous material and a
+    grid too thin for the stencil, refused until the field forward was
+    ported, now build it, as in the reference."""
     hetero = meshgen.hex_beam(3, 2, 2)
     hetero.materials[2] = Material(id=2, name="soft", E=1000.0, poisson=0.4)
     hetero.elem_mat = hetero.elem_mat.copy()
     hetero.elem_mat[0] = 2
-    with pytest.raises(NotImplementedError, match="item 8"):
-        forward.build_forward(hetero, dtype=F64, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        forward.build_forward(meshgen.hex_beam(4, 1, 3), dtype=F64,
-                              device="cpu")
+    thin = meshgen.hex_beam(4, 1, 3)
+    for model in (hetero, thin):
+        assert isinstance(jforward.build_forward(model),
+                          jforward.StructuredFieldForwardProblem)
+        assert isinstance(forward.build_forward(model, dtype=F64,
+                                                device="cpu"),
+                          forward.StructuredFieldForwardProblem)
     # An element whose material id is missing: the reference ignores it
     # and takes the stencil path; the port refuses.
     missing = meshgen.hex_beam(3, 2, 2)

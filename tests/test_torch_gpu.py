@@ -308,3 +308,63 @@ def test_nuts_transition_on_cuda():
     assert all(bool(torch.isfinite(t).all()) for t in new)
     assert ((n_evals >= 1) & (n_evals <= 2 ** max_depth - 1)).all()
     assert ((accept >= 0) & (accept <= 1)).all()
+
+
+@pytest.mark.parametrize("solver", ["Cholesky", "LU"])
+def test_cuda_dense_direct_matches_cpu_float64(solver):
+    """The dense direct path on the card, float32 and float64, against the
+    CPU's float64 solve of a TET4 model."""
+    _need_cuda()
+    from chip_smoke import tet_split
+
+    ref_m = tet_split(meshgen.hex_beam(6, 4, 4))
+    ref_m.analysis.lin_solver = solver
+    ref = solve_linear_statics(ref_m, device="cpu", dtype=torch.float64)
+    scale = np.abs(ref.u).max()
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
+        m = tet_split(meshgen.hex_beam(6, 4, 4))
+        m.analysis.lin_solver = solver
+        res = solve_linear_statics(m, device="cuda", dtype=dtype)
+        assert res.operator == ref.operator == f"dense-{solver.lower()}"
+        assert np.abs(res.u - ref.u).max() <= tol * scale
+        assert res.true_residual <= (1e-12 if dtype == torch.float64
+                                     else 1e-4)
+
+
+def test_cuda_newton_increment_matches_cpu_float64():
+    """One load increment of the Total-Lagrangian Newton solve on the card
+    (float32) against the CPU's float64 solve."""
+    _need_cuda()
+    from stan_tpu_torch.analysis.nonlinear import solve_nonlinear_statics
+
+    runs = {}
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        m = meshgen.hex_beam(6, 3, 3, load=(0.0, 0.0, -3000.0))
+        m.analysis.inc_numb = 1
+        runs[device] = solve_nonlinear_statics(m, device=device, dtype=dtype)
+    res, ref = runs["cuda"], runs["cpu"]
+    assert res.converged and ref.converged and ref.newton_iters[0] >= 2
+    assert abs(int(res.newton_iters[0]) - int(ref.newton_iters[0])) <= 1
+    assert np.abs(res.u - ref.u).max() <= 1e-4 * np.abs(ref.u).max()
+
+
+def test_cuda_general_forward_gradient_matches_cpu_float64():
+    """A 4-chain gradient of Σu² through the general forward
+    (prefer_stencil=False) on the card in float64 against the CPU's."""
+    _need_cuda()
+    from stan_tpu_torch.infer import forward
+
+    m = meshgen.hex_beam(6, 4, 4)
+    thetas = np.array([np.log(190000.0), 0.28, 0.0]) + np.random.default_rng(
+        4).normal(0.0, 0.05, (4, 3))
+    got = {}
+    for device in ("cuda", "cpu"):
+        fwd = forward.build_forward(m, dtype=torch.float64, device=device,
+                                    cg_tol=1e-12, prefer_stencil=False)
+        assert isinstance(fwd, forward.ForwardProblem)
+        th = torch.tensor(thetas, device=device, requires_grad=True)
+        u = forward.displacement_fn(fwd, m.nelem)(th)
+        torch.sum(u ** 2).backward()
+        got[device] = (u.detach().cpu().numpy(), th.grad.cpu().numpy())
+    for a, b in zip(got["cuda"], got["cpu"]):
+        assert np.abs(a - b).max() <= 1e-8 * np.abs(b).max()

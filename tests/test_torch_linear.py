@@ -192,12 +192,15 @@ def test_cli_solve_roundtrip(tmp_path, capsys):
 
 
 def test_unported_paths_raise():
+    """Only the domain-sharded solve (item 10) is refused; Cholesky, refused
+    until the direct solvers were ported, now solves."""
     m = meshgen.hex_beam(3, 2, 2)
     with pytest.raises(NotImplementedError, match="item 10"):
         solve_linear_statics(m, device="cpu", n_domain=2)
     m.analysis.lin_solver = "Cholesky"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        solve_linear_statics(m, device="cpu")
+    res = solve_linear_statics(m, device="cpu", dtype=F64)
+    assert res.operator == "dense-cholesky" and res.converged
+    assert res.true_residual < 1e-12
     m.analysis.lin_solver = "QR"
     with pytest.raises(ValueError, match="Unknown linear solver"):
         solve_linear_statics(m, device="cpu")

@@ -1,7 +1,7 @@
 """The port stands alone: it imports nothing of stan_tpu, jax or optax, and
 its copies of the reference's host modules (meshgen, model, STdb IO,
-checkpoints, the .vtu writer, the .bdf reader and writer, run records)
-agree with the originals.
+checkpoints, the .vtu writer, the .bdf reader and writer, run records, the
+banded solver and its BFS order) agree with the originals.
 
 The import scan reads the source, so it also sees imports inside functions
 that no test calls. The subprocess check that nothing of stan_tpu, jax or
@@ -63,7 +63,8 @@ def test_port_file_imports_nothing_of_stan_tpu(rel):
 HOST_COPIES = ["core/model.py", "core/meshgen.py", "core/validate.py",
                "fem/elements.py", "fem/hostops.py", "io/wire.py",
                "io/stdb_pb2.py", "io/stdb.py", "io/vtu.py", "io/nastran.py",
-               "utils/config.py", "utils/checkpoint.py", "utils/runlog.py"]
+               "utils/config.py", "utils/checkpoint.py", "utils/runlog.py",
+               "solvers/banded.py", "parallel/partition.py"]
 
 
 @pytest.mark.parametrize("rel", HOST_COPIES)
