@@ -8,9 +8,10 @@ Phases, each of which raises on failure:
      reports;
   3. stencil_sweep against its plain PyTorch version on the card, on the
      70^3 beam's tables, on a small odd grid, on the 32^3 grid, on one
-     x-plane (SX = 1) of it and on a 6x9x140 beam (z over two tiles), with
-     the x-face flags (1,1), (0,1), (1,0), (0,0), in float32 and float64,
-     random ghosts;
+     x-plane (SX = 1) of it, on a 6x9x140 beam (z over two tiles) and on
+     the sharded phases' slab ([3, 20, 73, 73]: one of 4 x-slabs of the
+     72-plane beam), with the x-face flags (1,1), (0,1), (1,0), (0,0), in
+     float32 and float64, random ghosts;
   4. theta_sweep (one grid) against its plain version on the same two grids
      and on the 32^3 calibration grid (the shape its main path runs), with
      two coefficient pairs, one of them the 32^3 calibration's (λ, μ) at
@@ -18,8 +19,12 @@ Phases, each of which raises on failure:
      of the 32^3 grid, 16 distinct pairs) and on the small odd grid; then
      shapes that stress the kernel's tiling: one x-plane (SX = 1) with 16
      chains and with one, and a 6x9x140 beam (y and z extents no tile
-     divides, z over two tiles) with 3 chains and with one; all four flag
-     pairs, float32 and float64, random ghosts;
+     divides, z over two tiles) with 3 chains and with one, and the sharded
+     forward's slab ([8, 3, 13, 35, 35]: one chain row of a 2 x 3 mesh on
+     one of 3 x-slabs of the 32^3 grid); all four flag pairs, float32 and
+     float64, random ghosts. The kernels line's max_abs_err is the float32
+     error at the single-device path's shape, flags (1,1), or at a sharded
+     slab under any flag pair, whichever is larger;
   5. at the main paths' shapes ([3, 73, 73, 73], the 70^3 grid, for
      stencil_sweep; [3, 35, 35, 35], the 32^3 grid, for theta_sweep, and
      [3, 73, 73, 73] beside it; [16, 3, 35, 35, 35] for
@@ -78,7 +83,29 @@ Phases, each of which raises on failure:
      (the float32 floor of the stencil and field operators);
  17. HMC through make_problem on the 32^3 beam with the elements at x >=
      L/2 a second material (E = 95000): the field forward, 16 chains, 8
-     leapfrog steps, 3 warmup + 3 samples, its unconverged solves counted.
+     leapfrog steps, 3 warmup + 3 samples, its unconverged solves counted;
+ 18. the x-slab sharded stencil apply on hex_beam(71, 70, 70) (NNX = 72,
+     1,088,856 DOF) over a 1 x 4 mesh (every visible card when there are
+     4 or more, else [cuda:0] * 4), against the single-device
+     StencilOperator.apply: within 1e-12 of max|f| in float64, 1e-5 in
+     float32;
+ 19. sharded_stencil_pcg on that model in float32 to 1e-6, in turns with
+     the single-device solve (ms per CG iteration): iterations within 2%,
+     max|u - u_single| <= 1e-4 max|u|, the float64 relative residual of u
+     by the structured operator (no kernel); then solve_linear_statics(
+     n_domain=4, device="cuda") (sharded-stencilx4 with 4 cards, stencil
+     on one); stencil_sweep's launches per flag pair;
+ 20. the sharded general operator on hex_beam(60, 12, 12) over 4 domains
+     (ring exchange) and 3 (all-gather), float64 CG to 1e-12, each within
+     1e-8 of max|u| of the single-device general operator's;
+ 21. the sharded calibration forward on the 32^3 calibration over a 2 x 3
+     (chains x domain) mesh: its float64 log posterior and gradient at 16 θ
+     within 1e-8 (relative) of make_problem's (cg_tol 1e-12); one float32
+     16-chain gradient timed in turns with the unsharded one; then HMC
+     through run_chains with its logp_grad_b (float32, 16 chains, 2
+     leapfrog steps, 2 warmup + 2 samples): finite samples, acceptance
+     above 0, unconverged solves counted, theta_sweep_batched launched.
+     No sharded phase calls a plain *_reference sweep on a CUDA tensor.
 
 --kernels runs phases 1-5 only (build, every kernel against its plain
 version, the timings), prints the kernels line with no launch counts (no
@@ -86,14 +113,17 @@ main path ran) and ends with a line that says the run was partial, not
 with the ok line: a quick probe of the kernels alone.
 
 Two measurements run only when asked for:
-  --profile  100 float32 CG iterations on the 70^3 stencil operator, one
-             16-chain gradient of the 32^3 posterior near θ_true, and 50
-             CG iterations on the 70^3 nonlinear solve's tangent, under
+  --profile  100 float32 CG iterations on the 70^3 stencil operator and
+             on the 72-plane sharded one, one 16-chain gradient of the 32^3
+             posterior near θ_true, and 50 CG iterations on the 70^3
+             nonlinear solve's tangent, under
              torch.profiler: wall time, (chain-batched) CG iterations, ms
              per iteration, device busy share, device time by kernel,
              launches per iteration; before the ADVI phase, three one-step
              ADVI fits timed in turn and one under torch.profiler (device
-             time by kernel, host time by operator);
+             time by kernel, host time by operator); the sharded
+             apply's halo padding (sharded_stencil.halo_pad) timed against
+             the reference's form (concatenate, then pad);
   --cli      `python -m stan_tpu_torch.cli calibrate --synthetic --sampler
              hmc --device cuda` on an STdb of the 32^3 beam (needs
              protobuf), at the CLI's default tolerance and at 1e-8 (a
@@ -114,11 +144,16 @@ Run from the repository root:
 The general path's phases (14-17) run no kernel of their own: the device
 code of the direct solvers, the nonlinear statics and the field and
 general forwards is plain torch and torch.linalg, as it is XLA in the JAX
-package; the banded solver is float64 host LAPACK in both.
+package; the banded solver is float64 host LAPACK in both. So is the
+sharded general operator (phase 20); the sharded stencil phases (18, 19,
+21) run stencil_sweep and theta_sweep_batched on x-slabs with their face
+flags. One process drives every device of a mesh; with one card the mesh
+repeats cuda:0, so no copy crosses cards there.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import itertools
@@ -168,6 +203,15 @@ FD_H, FD_REL, FD_ABS = 1e-4, 2e-3, 1e-3
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 FLUSH_BYTES = 256 * 2**20  # > the 50 MB L2
+# The sharded phases: the 70^3 beam widened by one x-plane (NNX = 72, which
+# 2, 3, 4 and 8 divide) on 4 domains; the banded beam on 4 domains (ring)
+# and 3 (all-gather); the 32^3 calibration (NNX = 33) on 2 x 3 chains x
+# domain, HMC cut in length only.
+SHARD_BEAM, SHARD_DOMAIN = (71, 70, 70), 4
+SHARD_GENERAL = ((4, True), (3, False))
+SHARD_MESH = (2, 3)
+SHARD_WARMUP, SHARD_SAMPLES, SHARD_LEAPFROG = 2, 2, 2
+SHARD_ITERS_GAP, SHARD_U_GAP, SHARD_FWD_RTOL = 0.02, 1e-4, 1e-8
 
 
 # The six tetrahedra of a HEX8 around its corner-0 to corner-6 diagonal, in
@@ -480,6 +524,7 @@ def reset_launches():
     stencil.launches = 0
     stencil.theta_launches = 0
     stencil.theta_batched_launches = 0
+    stencil.flag_launches.clear()
 
 
 def launch_counts() -> tuple:
@@ -784,16 +829,17 @@ def profile_advi(prob, theta0, card, top: int = 8) -> None:
 
 
 def profile_cg(apply, rhs, diag, label, card, iters: int = 100,
-               top: int = 6) -> None:
+               top: int = 6, run=None) -> None:
     """iters float32 CG iterations of cg.pcg on `apply` (with its
-    per-iteration host check) under torch.profiler: wall and device busy
-    time per iteration, busy share, device time by kernel."""
+    per-iteration host check), or of run(), under torch.profiler: wall and
+    device busy time per iteration, busy share, device time by kernel, and
+    the share of copy and fill kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     from stan_tpu_torch.solvers import cg
 
-    run = lambda: cg.pcg(apply, rhs, diag=diag, tol=0.0,  # noqa: E731
-                         maxiter=iters)
+    run = run or (lambda: cg.pcg(apply, rhs, diag=diag, tol=0.0,
+                                 maxiter=iters))
     run()
     wall_s = wall(run)
     with profile(activities=[ProfilerActivity.CPU,
@@ -813,6 +859,13 @@ def profile_cg(apply, rhs, diag, label, card, iters: int = 100,
         print(f"[{card}]   {e.self_device_time_total / busy_us:6.1%} "
               f"{e.count:7d} x {e.self_device_time_total / e.count:8.2f} us  "
               f"{e.key[:90]}")
+    for word in ("copy", "fill"):
+        us = sum(e.self_device_time_total for e in dev
+                 if word in e.key.lower() or (word == "copy"
+                                               and "memcpy" in e.key.lower()))
+        print(f"[{card}]   kernels named *{word}*: "
+              f"{us / max(busy_us, 1e-9):.1%} of device time, "
+              f"{us / iters / 1e3:.4f} ms per iteration")
 
 
 def _max_gap(a, b) -> float:
@@ -1066,6 +1119,309 @@ def two_material_phase(theta0, card) -> None:
             "two-material HMC samples not finite")
 
 
+def domain_mesh(n_chains: int, n_domain: int, card):
+    """A chains x domain mesh over every visible card when there are enough
+    of them, else over cuda:0 repeated; prints which."""
+    from stan_tpu_torch.parallel import distributed
+
+    need = n_chains * n_domain
+    cards = torch.cuda.device_count()
+    if cards >= need:
+        mesh = distributed.device_mesh(n_chains, n_domain)
+        which = f"cards 0-{need - 1} of {cards}"
+    else:
+        mesh = distributed.device_mesh(n_chains, n_domain,
+                                       devices=["cuda:0"] * need)
+        which = f"cuda:0 repeated {need} times ({cards} card(s) visible)"
+    print(f"[{card}] {distributed.describe(mesh)}: {which}")
+    return mesh
+
+
+@contextlib.contextmanager
+def plain_sweeps_refused():
+    """Within: a plain *_reference sweep called on a CUDA tensor raises, so
+    a sharded path that fell back to the plain version on the card would
+    fail the run."""
+    from stan_tpu_torch.fem import stencil
+
+    names = ("stencil_sweep_reference", "theta_sweep_reference")
+    saved = {n: getattr(stencil, n) for n in names}
+
+    def guard(name, fn):
+        def checked(t, *args, **kw):
+            require(t.device.type != "cuda",
+                    f"{name} ran on a CUDA tensor in a sharded phase")
+            return fn(t, *args, **kw)
+        return checked
+
+    for n, fn in saved.items():
+        setattr(stencil, n, guard(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(stencil, n, fn)
+
+
+def cat_pad(masks, us):
+    """The reference's form of sharded_stencil.halo_pad (masked slab, the
+    neighbours' planes concatenated, then the y/z pad), for timing."""
+    import torch.nn.functional as F
+
+    um = [m * u for m, u in zip(masks, us)]
+    out = []
+    for s, u in enumerate(um):
+        zero = torch.zeros_like(u[..., :1, :, :])
+        left = um[s - 1][..., -1:, :, :].to(u.device) if s else zero
+        right = um[s + 1][..., :1, :, :].to(u.device) if s + 1 < len(um) \
+            else zero
+        out.append(F.pad(torch.cat([left, u, right], dim=-3),
+                         (1, 1, 1, 1)).contiguous())
+    return out
+
+
+def sharded_stencil_phases(card, profile) -> int:
+    """Phases 18-19 on hex_beam(*SHARD_BEAM) over SHARD_DOMAIN domains;
+    returns the stencil_sweep launches of phase 19's sharded solves."""
+    from stan_tpu_torch.analysis.linear import solve_linear_statics
+    from stan_tpu_torch.core import meshgen
+    from stan_tpu_torch.fem import stencil, structured
+    from stan_tpu_torch.parallel import sharded_stencil as ss
+    from stan_tpu_torch.solvers import cg
+
+    model = meshgen.hex_beam(*SHARD_BEAM)
+    mesh = domain_mesh(1, SHARD_DOMAIN, card)
+    rng = np.random.default_rng(18)
+    ops = {}
+    for dtype in (torch.float64, torch.float32):
+        sop = stencil.build_stencil_operator(model, dtype=dtype,
+                                             device="cuda")
+        op = ss.build_sharded_stencil_operator(model, SHARD_DOMAIN,
+                                               dtype=dtype, device="cuda")
+        require(op is not None, f"{SHARD_BEAM} refused by the sharded "
+                                f"stencil operator")
+        u = torch.as_tensor(rng.standard_normal((3, *sop.node_shape)),
+                            dtype=dtype, device="cuda")
+        check_close(ss.sharded_apply(mesh, op, u), sop.apply(u), dtype,
+                    f"sharded apply x{SHARD_DOMAIN} {list(sop.node_shape)} "
+                    f"{str(dtype)[6:]} vs the single-device apply", card)
+        ops[dtype] = (sop, op)
+
+    sop, op = ops[torch.float32]
+    f = sop.to_grid(torch.as_tensor(model.load_vector(), dtype=torch.float32,
+                                    device="cuda")).contiguous()
+    rhs = (sop.free_mask * f).contiguous()
+    diag = sop.diagonal()
+    runs = {"single": lambda: cg.pcg(sop.apply, rhs, diag=diag, tol=1e-6),
+            "sharded": lambda: ss.sharded_stencil_pcg(mesh, op, f,
+                                                      tol=1e-6)}
+    got, secs = {}, {"single": [], "sharded": []}
+    for name in ("single", "sharded", "sharded", "single"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got[name] = runs[name]()
+        torch.cuda.synchronize()
+        secs[name].append(time.perf_counter() - t0)
+    per_it = {k: [t / got[k].iters * 1e3 for t in v] for k, v in secs.items()}
+    single, shard = got["single"], got["sharded"]
+    gap = float((shard.u - single.u).abs().max() / single.u.abs().max())
+    sop64 = structured.build_structured_operator(model, dtype=torch.float64,
+                                                 device="cuda")
+    b = sop64.free_mask * sop64.to_grid(torch.as_tensor(
+        model.load_vector(), dtype=torch.float64, device="cuda"))
+    rel = {k: float(torch.linalg.vector_norm(
+        b - sop64.apply(r.u.to(torch.float64))) / torch.linalg.vector_norm(b))
+        for k, r in got.items()}
+    print(f"[{card}] float32 CG to 1e-6 on {list(sop.node_shape)} "
+          f"({model.ndof} DOF): single device {single.iters} iterations, "
+          f"sharded x{SHARD_DOMAIN} {shard.iters}; ms per iteration "
+          f"(host clock, in turns single, sharded, sharded, single): single "
+          f"{per_it['single'][0]:.4f} / {per_it['single'][1]:.4f}, sharded "
+          f"{per_it['sharded'][0]:.4f} / {per_it['sharded'][1]:.4f}; "
+          f"max|u - u_single| / max|u| = {gap:.3e}; float64 relative "
+          f"residual (structured operator) single {rel['single']:.3e}, "
+          f"sharded {rel['sharded']:.3e}")
+    require(shard.converged, "sharded CG did not converge")
+    require(abs(shard.iters - single.iters) <= SHARD_ITERS_GAP * single.iters,
+            f"sharded CG {shard.iters} iterations vs {single.iters}")
+    require(gap <= SHARD_U_GAP, f"sharded u off the single-device u: {gap}")
+    # Both are float32 answers: their float64 residual is set by the
+    # float32 rounding of the tables, not by CG's 1e-6.
+    require(rel["sharded"] <= 2 * rel["single"],
+            f"sharded u's float64 residual {rel['sharded']} vs the single "
+            f"device's {rel['single']}")
+
+    reset_launches()
+    res = ss.sharded_stencil_pcg(mesh, op, f, tol=1e-6)
+    flags = {k[1:]: n for k, n in stencil.flag_launches.items()
+             if k[0] == "stencil_sweep"}
+    print(f"[{card}] stencil_sweep launches of one sharded solve "
+          f"({res.iters} iterations) by flag pair (is_low, is_high): "
+          f"{dict(sorted(flags.items()))}")
+    for pair in ((1, 0), (0, 0), (0, 1)):
+        require(flags.get(pair, 0) >= res.iters,
+                f"flags {pair}: {flags.get(pair, 0)} launches < "
+                f"{res.iters} iterations")
+    want = ("sharded-stencilx4" if torch.cuda.device_count() >= SHARD_DOMAIN
+            else "stencil")
+    t0 = time.perf_counter()
+    lin = solve_linear_statics(model, device="cuda", n_domain=SHARD_DOMAIN,
+                               store=False)
+    torch.cuda.synchronize()
+    print(f"[{card}] solve_linear_statics(n_domain={SHARD_DOMAIN}) on "
+          f"{torch.cuda.device_count()} card(s): operator {lin.operator}, "
+          f"n_domain {lin.n_domain}, {lin.iters} iterations, certified "
+          f"residual {lin.true_residual}, {time.perf_counter() - t0:.3f} s")
+    require(lin.operator == want, f"operator {lin.operator}, want {want}")
+    require(lin.converged and lin.true_residual <= 1e-6,
+            f"sharded linear solve: {lin.true_residual}")
+    launches = stencil.launches
+    print(f"[{card}] stencil_sweep launches in phase 19's counted runs: "
+          f"{launches} ({dict(sorted(stencil.flag_launches.items()))})")
+
+    if profile:
+        profile_cg(None, None, None, f"the {list(sop.node_shape)} sharded "
+                   f"x{SHARD_DOMAIN} stencil operator", card, run=lambda:
+                   ss.sharded_stencil_pcg(mesh, op, f, tol=0.0, maxiter=100),
+                   top=10)
+        profile_cg(sop.apply, rhs, diag, f"the same grid on one device",
+                   card)
+        masks = list(sop.free_mask.tensor_split(SHARD_DOMAIN, dim=1))
+        us = list(f.tensor_split(SHARD_DOMAIN, dim=1))
+        pads = (time_ms(lambda: ss.halo_pad(masks, us), 50),
+                time_ms(lambda: cat_pad(masks, us), 50),
+                time_ms(lambda: ss.halo_pad(masks, us), 50),
+                time_ms(lambda: cat_pad(masks, us), 50))
+        same = all(torch.equal(a, b) for a, b in zip(ss.halo_pad(masks, us),
+                                                     cat_pad(masks, us)))
+        print(f"[{card}] halo padding of {SHARD_DOMAIN} slabs (CUDA events, "
+              f"in turns): into padded buffers {pads[0]:.4f} / "
+              f"{pads[2]:.4f} ms, concatenate then pad {pads[1]:.4f} / "
+              f"{pads[3]:.4f} ms; same values {same}")
+    return launches
+
+
+def sharded_general_phase(card) -> None:
+    """Phase 20: the sharded general operator on hex_beam(*BAND_BEAM), each
+    (domains, ring) of SHARD_GENERAL, float64 CG to DIRECT_CG_TOL against
+    the single-device general operator's."""
+    from stan_tpu_torch.core import meshgen
+    from stan_tpu_torch.fem.operator import build_operator
+    from stan_tpu_torch.parallel import sharded
+    from stan_tpu_torch.solvers import cg
+
+    model = meshgen.hex_beam(*BAND_BEAM)
+    args = (model.coords, model.conn, model.elem_d_matrices(),
+            model.fix_mask(), model.formulation())
+    gop = build_operator(*args, dtype=torch.float64, device="cuda")
+    loads = model.load_vector()
+    f = gop.free_mask * torch.as_tensor(loads, dtype=torch.float64,
+                                        device="cuda")
+    t0 = time.perf_counter()
+    ref = cg.pcg(gop.apply, f, diag=gop.diagonal(), tol=DIRECT_CG_TOL)
+    ref_s = time.perf_counter() - t0
+    ref_u = ref.u.cpu().numpy()
+    print(f"[{card}] hex_beam{BAND_BEAM} ({model.ndof} DOF) general operator "
+          f"float64 CG to {DIRECT_CG_TOL:g}: {ref.iters} iterations, "
+          f"{ref_s:.3f} s")
+    for ndev, ring in SHARD_GENERAL:
+        mesh = domain_mesh(1, ndev, card)
+        op, part = sharded.build_sharded_operator(
+            *args, ndev, dtype=torch.float64, prefer_ring=ring,
+            device="cuda")
+        require(op.ring == ring, f"{ndev} domains: ring {op.ring}")
+        fp = torch.as_tensor(sharded.shard_rhs(part, loads),
+                             dtype=torch.float64, device="cuda")
+        t0 = time.perf_counter()
+        res = sharded.sharded_pcg(mesh, op, fp, tol=DIRECT_CG_TOL)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        gap = _max_gap(sharded.unshard_u(part, res.u.cpu().numpy()), ref_u)
+        print(f"[{card}] sharded general x{ndev} "
+              f"({'ring' if ring else 'all-gather'}, block {op.block} "
+              f"nodes): {res.iters} iterations, converged {res.converged}, "
+              f"{run_s:.3f} s ({run_s / res.iters * 1e3:.4f} ms per "
+              f"iteration; single device {ref_s / ref.iters * 1e3:.4f}); "
+              f"max|u - u_single| / max|u| = {gap:.3e}")
+        require(res.converged and gap <= DIRECT_GAP,
+                f"sharded general x{ndev}: gap {gap}")
+
+
+def sharded_calibration_phase(cal_model, obs, theta0, card) -> int:
+    """Phase 21: the sharded calibration forward on a SHARD_MESH mesh;
+    returns the theta_sweep_batched launches of its HMC run."""
+    from stan_tpu_torch.fem import stencil
+    from stan_tpu_torch.infer import calibrate, hmc
+
+    mesh = domain_mesh(*SHARD_MESH, card)
+    theta = (np.array([np.log(210000.0), 0.0, 0.0])
+             + np.random.default_rng(21).normal(0.0, 0.1, (CHAINS, 3)))
+    th = torch.as_tensor(theta, device="cuda")
+    got = {}
+    for name in ("unsharded", "sharded"):
+        kw = dict(dtype=torch.float64, cg_tol=1e-12)
+        if name == "sharded":
+            lgb = calibrate.make_sharded_problem(cal_model, mesh, *obs,
+                                                 **kw).logp_grad_b()
+        else:
+            lgb = hmc.guarded_logp_grad_b(calibrate.make_problem(
+                cal_model, *obs, device="cuda", **kw).log_posterior)
+        got[name] = [t.cpu().numpy() for t in lgb(th)]
+    gap_v = float(np.max(np.abs(got["sharded"][0] - got["unsharded"][0])
+                         / np.abs(got["unsharded"][0])))
+    gap_g = _max_gap(got["sharded"][1], got["unsharded"][1])
+    print(f"[{card}] sharded calibration {SHARD_MESH[0]} x {SHARD_MESH[1]} "
+          f"vs make_problem, float64, {CHAINS} θ, cg_tol 1e-12: log "
+          f"posterior gap {gap_v:.3e} (relative, per chain), gradient gap "
+          f"{gap_g:.3e} (of the largest entry)")
+    require(gap_v <= SHARD_FWD_RTOL and gap_g <= SHARD_FWD_RTOL,
+            f"sharded calibration off make_problem: {gap_v}, {gap_g}")
+
+    probs = calibrate.make_sharded_problem(cal_model, mesh, *obs,
+                                           cg_tol=1e-6)
+    prob1 = calibrate.make_problem(cal_model, *obs, device="cuda",
+                                   cg_tol=1e-6)
+    lgbs = {"sharded": probs.logp_grad_b(),
+            "unsharded": hmc.guarded_logp_grad_b(prob1.log_posterior)}
+    secs = {"sharded": [], "unsharded": []}
+    for name in ("unsharded", "sharded"):
+        lgbs[name](th)  # the first call of each pays its set-up
+    for name in ("unsharded", "sharded", "sharded", "unsharded"):
+        secs[name].append(wall(lambda: lgbs[name](th)))
+    print(f"[{card}] one float32 {CHAINS}-chain gradient at {G}^3 (host "
+          f"clock, in turns): unsharded {secs['unsharded'][0]:.4f} / "
+          f"{secs['unsharded'][1]:.4f} s, sharded {SHARD_MESH[0]} x "
+          f"{SHARD_MESH[1]} {secs['sharded'][0]:.4f} / "
+          f"{secs['sharded'][1]:.4f} s")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out = hmc.run_chains(probs.logp_grad_b(), hmc.hmc_kernel(SHARD_LEAPFROG),
+                         theta0, 29, n_samples=SHARD_SAMPLES,
+                         n_warmup=SHARD_WARMUP, init_step=0.02,
+                         target_accept=0.8, solve_stats=probs.fwd.stats)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    st = out.solve_stats
+    batched = stencil.theta_batched_launches
+    loop = st["forward_loop_iters"] + st["adjoint_loop_iters"]
+    print(f"[{card}] sharded HMC {G}^3 on {SHARD_MESH[0]} x {SHARD_MESH[1]} "
+          f"({CHAINS} chains, {SHARD_LEAPFROG} leapfrog steps, "
+          f"{SHARD_WARMUP} warmup + {SHARD_SAMPLES} samples): {wall_s:.2f} s, "
+          f"{out.grad_evals} gradients; acceptance "
+          f"{float(np.mean(out.accept_rate)):.3f}; theta_sweep_batched "
+          f"{batched}, theta_sweep {stencil.theta_launches} "
+          f"({dict(sorted(stencil.flag_launches.items()))})")
+    _report_solves("sharded HMC", st, card)
+    require(out.samples.shape == (CHAINS, SHARD_SAMPLES, 3)
+            and np.isfinite(out.samples).all(), "sharded HMC not finite")
+    require(float(np.mean(out.accept_rate)) > 0.0, "sharded HMC acceptance 0")
+    require(batched >= SHARD_MESH[0] * SHARD_MESH[1] * loop,
+            f"{batched} batched launches < {SHARD_MESH} slabs x {loop} "
+            f"batched loop iterations")
+    return batched
+
+
 def cli_general(card) -> None:
     """`cli solve --type Nonlinear_Statics --increments 2` on an STdb of the
     G^3 beam, `cli solve --solver Cholesky` on a small one, and `cli
@@ -1165,7 +1521,10 @@ def device() -> dict:
 def print_kernels(errs, theta_errs, batched_errs, facts, launches) -> None:
     """The kernels line: each kernel's facts, with the main paths' launch
     counts (stencil_sweep, theta_sweep, theta_sweep_batched), or null for
-    each where no main path ran."""
+    each where no main path ran. errs etc. are lists of compare_* results:
+    the first at the single-device path's shape, whose float32 (1,1) error
+    counts, then any at the sharded paths' slab shapes, whose float32
+    errors count under every flag pair."""
     rows = (
         ("stencil_sweep", "stan_tpu_torch/csrc/stencil_sweep.cu",
          "stan_tpu/fem/stencil.py:218", errs),
@@ -1174,13 +1533,19 @@ def print_kernels(errs, theta_errs, batched_errs, facts, launches) -> None:
         ("theta_sweep_batched", "stan_tpu_torch/csrc/theta_sweep.cu",
          "stan_tpu/fem/stencil.py:610", batched_errs),
     )
+
+    def max_err(main, *slabs):
+        return max([main[(torch.float32, (1, 1))],
+                    *(e for slab in slabs for (dtype, _), e in slab.items()
+                      if dtype == torch.float32)])
+
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": source,
         "replaces": replaces,
         "launches": None if launches is None else launches[i],
-        "max_abs_err": err[(torch.float32, (1, 1))],
+        "max_abs_err": max_err(*err),
         **facts[(name, torch.float32)],
     } for i, (name, source, replaces, err) in enumerate(rows)]}))
 
@@ -1249,6 +1614,15 @@ def main() -> int:
         meshgen.hex_beam(6, 9, 140, lx=6.0, ly=9.0, lz=140.0),
         dtype=torch.float64, device="cuda")
     compare_sweeps(op_long.tables, op_long.node_shape, rng, "6x9x140", card)
+    # The sharded stencil's slab (phases 18-19): one of SHARD_DOMAIN x-slabs
+    # of the 72-plane beam, [3, 20, 73, 73] with its ghosts.
+    op_shard = stencil.build_stencil_operator(
+        meshgen.hex_beam(*SHARD_BEAM), dtype=torch.float64, device="cuda")
+    slab_shape = (op_shard.node_shape[0] // SHARD_DOMAIN,
+                  *op_shard.node_shape[1:])
+    shard_errs = compare_sweeps(op_shard.tables, slab_shape, rng,
+                                f"slab {list(slab_shape)}", card)
+    del op_shard
 
     lam_true, mu_true = forward.lame_from_E_nu(np.exp(THETA_TRUE[0]),
                                                THETA_TRUE[1])
@@ -1274,6 +1648,13 @@ def main() -> int:
     long_z = meshgen.hex_beam(6, 9, 140, lx=6.0, ly=9.0, lz=140.0)
     compare_theta(long_z, chain_pairs[:3], rng, "[3,3,9,12,143]", card, True)
     compare_theta(long_z, pairs[:1], rng, "[3,9,12,143]", card, False)
+    # The sharded forward's slab (phase 21): one chain row's chains on one
+    # of the domain axis's x-slabs of the 32^3 grid.
+    row_chains, slab_sx = CHAINS // SHARD_MESH[0], (G + 1) // SHARD_MESH[1]
+    shard_batched_errs = compare_theta(
+        cal_model, chain_pairs[:row_chains], rng,
+        f"slab [{row_chains},3,{slab_sx + 2},{G + 3},{G + 3}]", card, True,
+        sx=slab_sx)
 
     # -- time, bound and library call at the main paths' shapes -----------
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
@@ -1343,7 +1724,8 @@ def main() -> int:
         del K, V
     del flush
     if args.kernels:
-        print_kernels(errs, theta_errs, batched_errs, facts, None)
+        print_kernels([errs, shard_errs], [theta_errs],
+                  [batched_errs, shard_batched_errs], facts, None)
         print(json.dumps({"partial": "kernels only (phases 1-5): no main "
                           "path ran", "device": device()}))
         return 0
@@ -1505,6 +1887,13 @@ def main() -> int:
     batched_launches += three_forwards_phase(
         cal_model, (obs_nodes, obs_dirs, y, sigma), card)
     two_material_phase(theta0, card)
+    # -- the domain-sharded paths: x-slab stencil apply and CG, the general
+    # sharded operator, the chains x domain calibration forward -----------
+    with plain_sweeps_refused():
+        launches += sharded_stencil_phases(card, args.profile)
+        sharded_general_phase(card)
+        batched_launches += sharded_calibration_phase(
+            cal_model, (obs_nodes, obs_dirs, y, sigma), theta0, card)
     if args.cli:
         cli_calibration(card)
         cli_nuts_export(card)
@@ -1512,7 +1901,8 @@ def main() -> int:
 
     stray = sorted(m for m in sys.modules if m.split(".")[0] == "stan_tpu")
     require(not stray, f"the port loaded modules of stan_tpu: {stray}")
-    print_kernels(errs, theta_errs, batched_errs, facts,
+    print_kernels([errs, shard_errs], [theta_errs],
+                  [batched_errs, shard_batched_errs], facts,
                   (launches, theta_launches, batched_launches))
     print(json.dumps({"ok": True, "device": device()}))
     return 0

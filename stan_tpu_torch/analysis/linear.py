@@ -1,13 +1,23 @@
 """Linear static analysis driver.
 
-Port of stan_tpu/analysis/linear.py on one device. With the CG solver the
-operator is chosen fastest first: the assembled stencil (hand-written CUDA
-sweep) on a uniform-material structured HEX8 grid, then the structured
-slice-gather operator, then the general gather/scatter operator. All three
-act on the same masked system. A solve below float64 is certified: the
-true float64 residual is computed with the same operator family built in
-float64 on the same device, and mixed-precision refinement runs until the
-configured tolerance holds.
+Port of stan_tpu/analysis/linear.py. With the CG solver the operator is
+chosen fastest first, as the reference chooses it: over more than one
+device of the domain axis, the sharded stencil (x-slabs,
+parallel/sharded_stencil.py) and then the sharded general operator
+(parallel/sharded.py); on one device, the assembled stencil (hand-written
+CUDA sweep) on a uniform-material structured HEX8 grid, then the
+structured slice-gather operator, then the general gather/scatter
+operator. All act on the same masked system. A solve below float64 is
+certified on one device: the true float64 residual is computed with the
+same operator family built in float64 on the same device (the stencil for
+a sharded stencil solve, the general operator for a sharded general one),
+and mixed-precision refinement runs until the configured tolerance holds.
+
+The domain width: on CUDA, n_domain is clamped to the visible cards, and
+None means all of them for a model of AUTO_SHARD_MIN_NNODE nodes or more
+(one card otherwise), as the reference clamps to its devices. On the CPU an
+explicit n_domain is honoured with that many CPU slabs (one process drives
+them all) and None means 1.
 
 The direct solvers (Cholesky, LU) dispatch on size as the reference does:
 up to 6000 DOF the masked K is assembled dense and factored on the device
@@ -31,6 +41,8 @@ from stan_tpu_torch.fem import stencil as stencil_mod
 from stan_tpu_torch.fem import structured as structured_mod
 from stan_tpu_torch.fem.operator import (StiffnessOperator, build_operator,
                                          default_dtype, resolve_device)
+from stan_tpu_torch.parallel import distributed, sharded
+from stan_tpu_torch.parallel import sharded_stencil as sstencil_mod
 from stan_tpu_torch.solvers import banded, direct
 from stan_tpu_torch.solvers import cg as cg_mod
 from stan_tpu_torch.utils.timing import PhaseTimer
@@ -49,7 +61,8 @@ class LinearResult:
     iters: int
     residual: float
     converged: bool
-    # stencil / structured / general (CG); dense-cholesky, dense-lu,
+    # stencil / structured / general, sharded-stencilxN /
+    # sharded-generalxN (CG over N devices); dense-cholesky, dense-lu,
     # banded-cholesky, banded-lu (direct)
     operator: str = "general"
     n_domain: int = 1
@@ -103,23 +116,72 @@ def _from_grid(u_grid: torch.Tensor) -> torch.Tensor:
     return u_grid.permute(1, 2, 3, 0).reshape(-1, 3)
 
 
+# Auto domain decomposition threshold: below this node count a sharded
+# solve costs more in exchanges and set-up than it saves.
+AUTO_SHARD_MIN_NNODE = 20_000
+
+
+def _domain_width(model, device, n_domain) -> int:
+    """The domain axis's width (module docstring)."""
+    if device.type != "cuda":
+        return max(1, n_domain or 1)
+    ndev = torch.cuda.device_count()
+    if n_domain is None:
+        n_domain = ndev if (ndev > 1 and model.nnode >= AUTO_SHARD_MIN_NNODE
+                            ) else 1
+    return max(1, min(n_domain, ndev))
+
+
+def _domain_mesh(device, n: int) -> distributed.DeviceMesh:
+    """One row of n devices: the first n cards, or n CPU slabs."""
+    if device.type == "cuda":
+        return distributed.device_mesh(1, n)
+    return distributed.device_mesh(1, n, devices=[device] * n)
+
+
 def _pick_cg_path(model, dtype, device, use_structured, n_domain):
-    """Choose the fastest applicable single-device CG operator: stencil >
-    structured > general. Returns (kind, grid operator or None)."""
-    if n_domain not in (None, 1):
-        raise NotImplementedError(
-            "domain-sharded solves (n_domain > 1) are not ported yet: "
-            "ROADMAP.md queue 1, item 10 (multi-GPU)")
+    """Choose the fastest applicable CG operator, as the reference does:
+    sharded stencil > sharded general over more than one device, then
+    stencil > structured > general. Returns (kind, its operator: the
+    sharded or single-device grid operator, None for the general ones; the
+    domain width used)."""
+    n = _domain_width(model, device, n_domain)
+    if n > 1 and use_structured:
+        ssop = sstencil_mod.build_sharded_stencil_operator(
+            model, n, dtype=dtype, device=device)
+        if ssop is not None:
+            return "sharded-stencil", ssop, n
+    if n > 1:
+        return "sharded-general", None, n
     if use_structured:
         sop = stencil_mod.build_stencil_operator(model, dtype=dtype,
                                                  device=device)
         if sop is not None:
-            return "stencil", sop
+            return "stencil", sop, 1
         sop = structured_mod.build_structured_operator(model, dtype=dtype,
                                                        device=device)
         if sop is not None:
-            return "structured", sop
-    return "general", None
+            return "structured", sop, 1
+    return "general", None, 1
+
+
+def _solve_sharded(kind, payload, model, op, f, n, tol, maxiter):
+    """The sharded CG solve over a one-row mesh of n devices; returns (its
+    CGResult, u [nnode, 3] in float64 on op's device)."""
+    mesh = _domain_mesh(op.device, n)
+    if kind == "sharded-stencil":
+        node_shape = tuple(payload.free_mask.shape[1:])
+        res = sstencil_mod.sharded_stencil_pcg(
+            mesh, payload, _to_grid(node_shape, f), tol=tol, maxiter=maxiter)
+        return res, _from_grid(res.u).to(torch.float64)
+    shop, part = sharded.build_sharded_operator(
+        model.coords, model.conn, model.elem_d_matrices(), model.fix_mask(),
+        model.formulation(), n, dtype=op.dtype, device=op.device)
+    fp = torch.as_tensor(sharded.shard_rhs(part, model.load_vector()),
+                         dtype=op.dtype, device=op.device)
+    res = sharded.sharded_pcg(mesh, shop, fp, tol=tol, maxiter=maxiter)
+    u = sharded.unshard_u(part, res.u.cpu().numpy())
+    return res, torch.as_tensor(u, dtype=torch.float64, device=op.device)
 
 
 def _f64_twin(model, kind, device):
@@ -191,7 +253,8 @@ def solve_linear_statics(
 
     device: where the solve runs ("cuda" by default; never changed behind
       the caller's back). dtype: float32 by default (fem/operator.py).
-    n_domain: None or 1; domain-sharded solves are not ported yet.
+    n_domain: the domain-decomposition width (module docstring); 1 forces
+      one device.
     certify: when a CG solve runs below float64, certify the true float64
       residual and refine until the configured tolerance holds; for the
       direct solvers, report the true float64 residual of their solution.
@@ -213,9 +276,11 @@ def solve_linear_statics(
         op = build_operator(model.coords, model.conn, model.elem_d_matrices(),
                             fix, form, dtype=dtype, device=device)
         f = torch.as_tensor(loads, dtype=dtype, device=device)
+        n_used = 1
         if solver == "CG":
-            kind, sop = _pick_cg_path(model, dtype, device, use_structured,
-                                      n_domain)
+            path, sop, n_used = _pick_cg_path(model, dtype, device,
+                                              use_structured, n_domain)
+            kind = path if n_used == 1 else f"{path}x{n_used}"
 
     refine_cycles = refine_iters = 0
     needs_cert = False
@@ -225,22 +290,35 @@ def solve_linear_statics(
         iters, residual, converged = 1, 0.0, True
     else:
         with timer.phase(f"Linear solve (CG, {kind})"):
-            if sop is not None:
+            if n_used > 1:
+                res, u64 = _solve_sharded(path, sop, model, op, f, n_used,
+                                          tol, maxiter)
+            elif sop is not None:
                 res = _solve_cg_structured(sop, f, tol, maxiter)
+                u64 = res.u.to(torch.float64)
             else:
                 res = _solve_cg(op, f, tol, maxiter)
-            u64 = res.u.to(torch.float64)
+                u64 = res.u.to(torch.float64)
             iters, residual, converged = res.iters, res.residual, \
                 res.converged
         timer.records[-1]["iters"] = iters
 
+        # Certification runs on one device, as in the reference: a sharded
+        # stencil solve on its single-device stencil twin, a sharded
+        # general one on the general operator.
+        twin = path.removeprefix("sharded-")
+        if n_used > 1:
+            sop = (stencil_mod.build_stencil_operator(model, dtype=dtype,
+                                                      device=device)
+                   if twin == "stencil" and certify
+                   and dtype != torch.float64 else None)
         true_residual = None
         cert_op = sop if sop is not None else op
         needs_cert = (certify and dtype != torch.float64
                       and not (sop is None and model.nelem > 200_000))
         if needs_cert:
             with timer.phase("Certify (f64 refinement)"):
-                hi = _f64_twin(model, kind, device)
+                hi = _f64_twin(model, twin, device)
                 loads64 = torch.as_tensor(loads, dtype=torch.float64,
                                           device=device)
                 if sop is not None:
@@ -283,7 +361,7 @@ def solve_linear_statics(
     return LinearResult(
         u=u_np, strain=eps_np, stress=sig_np, reactions=R_np,
         iters=iters, residual=residual, converged=converged,
-        operator=kind, n_domain=1, true_residual=true_residual,
+        operator=kind, n_domain=n_used, true_residual=true_residual,
         refine_cycles=refine_cycles, refine_iters=refine_iters,
         u_certified=u64.cpu().numpy() if needs_cert else None,
     )

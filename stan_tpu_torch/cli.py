@@ -1,11 +1,13 @@
 """Command-line interface of the port.
 
-Port of stan_tpu/cli.py on one device:
+Port of stan_tpu/cli.py:
 
 ``solve`` mirrors the reference's: read the STdb, apply the TOML config and
 the flag overrides, validate, solve, write the STdb. A linear solve (CG,
 or the Cholesky and LU direct solvers) prints iterations, residual,
-operator and the float64 residual; a nonlinear one (--type
+operator, the number of devices and the float64 residual; --domain N
+decomposes a CG solve over N devices (the visible cards, or N CPU slabs
+with --device cpu). A nonlinear one (--type
 Nonlinear_Statics, --increments N) prints each increment's Newton
 iterations, residual and CG iterations. Exit code 0 if the solve
 converged, 1 if not, 2 if the model is invalid.
@@ -28,7 +30,7 @@ Usage:
                                      [--solver CG|Cholesky|LU] [--tol 1e-6]
                                      [--maxiter N]
                                      [--type Linear_Statics|Nonlinear_Statics]
-                                     [--increments N]
+                                     [--increments N] [--domain N]
                                      [--config run.toml] [--log-json run.jsonl]
                                      [--device cuda]
   python -m stan_tpu_torch.cli calibrate model.STdb [--synthetic]
@@ -97,10 +99,12 @@ def _cmd_solve(args) -> int:
     if model.analysis.type == "Linear_Statics":
         from stan_tpu_torch.analysis.linear import solve_linear_statics
 
-        res = solve_linear_statics(model, device=args.device, timer=timer)
+        res = solve_linear_statics(model, device=args.device, timer=timer,
+                                   n_domain=args.domain)
         print(f"   Linear solve: {res.iters} iterations, "
               f"residual {res.residual:.3e}, converged={res.converged}")
-        print(f"   Operator: {res.operator} (device {args.device})")
+        print(f"   Operator: {res.operator} ({res.n_domain} "
+              f"device{'s' if res.n_domain != 1 else ''}, {args.device})")
         if res.true_residual is not None:
             print(f"   Certified f64 residual: {res.true_residual:.3e} "
                   f"({res.refine_cycles} refinement cycles, "
@@ -167,8 +171,9 @@ def _cmd_calibrate(args) -> int:
         inf.samples = args.samples
     if cfg.sharding.chains > 1 or cfg.sharding.domain > 1:
         raise NotImplementedError(
-            "a [sharding] device mesh is not ported yet: ROADMAP.md queue 1, "
-            "item 10 (multi-GPU); the port samples on one device")
+            "a [sharding] device mesh for the samplers is not ported yet: "
+            "ROADMAP.md queue 1, item 10b (chain placement over devices); "
+            "the CLI samples on one device")
 
     with timer.phase("Read database"):
         model = stdb.read(args.path)
@@ -383,6 +388,10 @@ def main(argv=None) -> int:
                    help="analysis type (default: the model's)")
     p.add_argument("--increments", type=int,
                    help="load increments of a nonlinear solve")
+    p.add_argument("--domain", type=int, default=None,
+                   help="domain-decomposition width of a CG solve (devices); "
+                        "default: all visible cards for meshes of 20,000 "
+                        "nodes or more, 1 otherwise (1 on the CPU)")
     p.add_argument("--config", help="TOML run config (utils/config.py)")
     p.add_argument("--log-json", help="append a structured run record here")
     p.add_argument("--device", default="cuda",

@@ -29,6 +29,7 @@ their plain version. ThetaSweep makes the sweep differentiable in (λ, μ, u).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import itertools
@@ -52,10 +53,12 @@ _SIGS = tuple(itertools.product("FLH", repeat=3))
 _INTERIOR = ("F", "F", "F")
 
 # Kernel launches on CUDA tensors since the last reset, one count per
-# kernel wrapper: stencil_sweep, theta_sweep, theta_sweep_batched.
+# kernel wrapper: stencil_sweep, theta_sweep, theta_sweep_batched; and the
+# same launches by (wrapper, is_low, is_high), the x-face flags.
 launches = 0
 theta_launches = 0
 theta_batched_launches = 0
+flag_launches = collections.Counter()
 
 
 def signature_tables(ke: np.ndarray) -> dict:
@@ -199,6 +202,7 @@ def stencil_sweep(up: torch.Tensor, table: torch.Tensor, is_low,
     _build.check(code, "stencil_sweep launch", "stencil_sweep")
     global launches
     launches += 1
+    flag_launches["stencil_sweep", int(bool(is_low)), int(bool(is_high))] += 1
     return out
 
 
@@ -310,6 +314,7 @@ def theta_sweep(up: torch.Tensor, tables2: torch.Tensor, coef: torch.Tensor,
     out = _launch_theta(up[None], tables2, coef[None], is_low, is_high)[0]
     global theta_launches
     theta_launches += 1
+    flag_launches["theta_sweep", int(bool(is_low)), int(bool(is_high))] += 1
     return out
 
 
@@ -335,19 +340,28 @@ def theta_sweep_batched(up_b: torch.Tensor, tables2: torch.Tensor,
     out = _launch_theta(up_b, tables2, coef, is_low, is_high)
     global theta_batched_launches
     theta_batched_launches += 1
+    flag_launches["theta_sweep_batched", int(bool(is_low)),
+                  int(bool(is_high))] += 1
     return out
+
+
+def theta_apply_padded(tables2: torch.Tensor, coef: torch.Tensor,
+                       up: torch.Tensor, is_low, is_high) -> torch.Tensor:
+    """coef[b, 0]·K_λu_b + coef[b, 1]·K_μu_b on ghost-padded slabs up [B, 3,
+    SX+2, NNY+2, NNZ+2] with coef [B, 2]: one chain goes through
+    theta_sweep, more through one theta_sweep_batched launch."""
+    if up.shape[0] == 1:
+        return theta_sweep(up[0], tables2, coef[0], is_low, is_high)[None]
+    return theta_sweep_batched(up, tables2, coef, is_low, is_high)
 
 
 def theta_apply(tables2: torch.Tensor, lam: torch.Tensor, mu: torch.Tensor,
                 u: torch.Tensor) -> torch.Tensor:
     """λ_b·K_λu_b + μ_b·K_μu_b on whole node grids u [B, 3, X, Y, Z] with
-    λ, μ [B] (zero ghosts, flags (1, 1)). One chain goes through theta_sweep,
-    more through one theta_sweep_batched launch."""
+    λ, μ [B] (zero ghosts, flags (1, 1))."""
     up = F.pad(u, (1, 1, 1, 1, 1, 1)).contiguous()
     coef = torch.stack([lam, mu], dim=-1).to(u.dtype)
-    if u.shape[0] == 1:
-        return theta_sweep(up[0], tables2, coef[0], 1, 1)[None]
-    return theta_sweep_batched(up, tables2, coef, 1, 1)
+    return theta_apply_padded(tables2, coef, up, 1, 1)
 
 
 def theta_coef_grads(tables2: torch.Tensor, ct: torch.Tensor,

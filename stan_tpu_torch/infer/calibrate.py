@@ -13,14 +13,18 @@ Priors (weakly informative):
   log s (load) ~ Normal(0, sigma_logs)
 Likelihood: y ~ Normal(u_obs(θ), sigma_obs), independent per observed DOF.
 
-The domain-sharded problem (make_sharded_problem, obs_grids) waits for
-multi-GPU: ROADMAP.md queue 1, item 10.
+The chains x domain problem (make_sharded_problem, obs_grids,
+ShardedCalibrationProblem) has the same posterior with the forward solve
+cut into x-slabs over a device mesh (forward.ShardedStencilForwardProblem);
+its logp_grad_b() feeds hmc.run_chains. Placing chains over devices for
+the samplers (run_hmc / run_nuts / run_smc on a mesh) is ROADMAP.md queue
+1, item 10b.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -28,6 +32,7 @@ import torch.nn.functional as F
 
 from stan_tpu_torch.core.model import FEModel
 from stan_tpu_torch.infer import forward as fwd_mod
+from stan_tpu_torch.parallel.distributed import DeviceMesh
 
 
 @dataclasses.dataclass
@@ -75,12 +80,7 @@ class CalibrationProblem:
         return loglike + self._log_prior(theta, self.infer_load)
 
     def _log_prior(self, theta: torch.Tensor, load: bool) -> torch.Tensor:
-        lp = -0.5 * ((theta[:, 0] - self.mu_logE) / self.sigma_logE) ** 2
-        # logit-uniform Jacobian: log dν/dt = log 0.5 + log σ(t) + log σ(-t)
-        lp = lp + F.logsigmoid(theta[:, 1]) + F.logsigmoid(-theta[:, 1])
-        if load:
-            lp = lp - 0.5 * (theta[:, 2] / self.sigma_logs) ** 2
-        return lp
+        return _log_prior(self, theta, load)
 
     # SMC's split of the posterior (the reference CLI's, stan_tpu/cli.py:
     # 256-272): log_prior + log_likelihood = log_posterior. The prior always
@@ -114,6 +114,105 @@ class CalibrationProblem:
         nu = 0.5 / (1.0 + np.exp(-samples[..., 1]))
         s = np.exp(samples[..., 2])
         return np.stack([E, nu, s], axis=-1)
+
+
+def _log_prior(prob, theta: torch.Tensor, load: bool) -> torch.Tensor:
+    """The prior [C] of θ [C, 3] under prob's prior settings (both problem
+    types); `load`: with log s's normal."""
+    lp = -0.5 * ((theta[:, 0] - prob.mu_logE) / prob.sigma_logE) ** 2
+    # logit-uniform Jacobian: log dν/dt = log 0.5 + log σ(t) + log σ(-t)
+    lp = lp + F.logsigmoid(theta[:, 1]) + F.logsigmoid(-theta[:, 1])
+    if load:
+        lp = lp - 0.5 * (theta[:, 2] / prob.sigma_logs) ** 2
+    return lp
+
+
+@dataclasses.dataclass
+class ShardedCalibrationProblem:
+    """Chains x domain calibration: CalibrationProblem's posterior (the same
+    priors and transform; the observation term a masked sum over the grid)
+    with the forward solve on a device mesh
+    (forward.ShardedStencilForwardProblem). Feed ``logp_grad_b()`` to
+    hmc.run_chains."""
+
+    fwd: fwd_mod.ShardedStencilForwardProblem
+    w_grid: np.ndarray  # [3, NNX, NNY, NNZ] observation mask
+    y_grid: np.ndarray  # observed values on the grid (0 where w is 0)
+    sigma_obs: float
+    mu_logE: float = float(np.log(210000.0))
+    sigma_logE: float = 1.0
+    sigma_logs: float = 0.5
+    infer_load: bool = False
+
+    def theta_to_material(self, theta: torch.Tensor):
+        """Unconstrained θ [C, 3] = (log E, logit(2ν), log s) -> (λ, μ, load
+        scale), [C] each: CalibrationProblem.log_posterior's transform."""
+        nu = 0.5 * torch.sigmoid(theta[:, 1])
+        lam, mu = fwd_mod.lame_from_E_nu(torch.exp(theta[:, 0]), nu)
+        s = (torch.exp(theta[:, 2]) if self.infer_load
+             else torch.ones_like(nu))
+        return lam, mu, s
+
+    def prior_logp(self, theta: torch.Tensor) -> torch.Tensor:
+        return _log_prior(self, theta, self.infer_load)
+
+    def logp_grad_b(self):
+        """θ [C, D] -> (log posterior [C], gradient [C, D]) through the
+        sharded forward, for hmc.run_chains."""
+        return self.fwd.make_batched_logp_grad(
+            self.w_grid, self.y_grid, self.sigma_obs,
+            self.theta_to_material, self.prior_logp)
+
+    constrain = staticmethod(CalibrationProblem.constrain)
+
+
+def obs_grids(node_shape, obs_nodes, obs_dirs, y):
+    """Scatter (node, dir) observations onto [3, NNX, NNY, NNZ] mask and
+    value grids (meshgen numbering: id = i*nny*nnz + j*nnz + k). A repeated
+    (node, dir) pair is refused, as the reference refuses it: the grid form
+    holds one value per DOF (make_problem accepts repeats)."""
+    nnx, nny, nnz = node_shape
+    nodes = np.asarray(obs_nodes, np.int64)
+    dirs = np.asarray(obs_dirs, np.int64)
+    pairs = set(zip(nodes.tolist(), dirs.tolist()))
+    if len(pairs) != len(nodes):
+        raise ValueError("duplicate (node, dir) observations")
+    i = nodes // (nny * nnz)
+    j = (nodes // nnz) % nny
+    k = nodes % nnz
+    w = np.zeros((3, nnx, nny, nnz))
+    yg = np.zeros((3, nnx, nny, nnz))
+    w[dirs, i, j, k] = 1.0
+    yg[dirs, i, j, k] = np.asarray(y, np.float64)
+    return w, yg
+
+
+def make_sharded_problem(
+    model: FEModel,
+    mesh: DeviceMesh,
+    obs_nodes: Sequence[int],
+    obs_dirs: Sequence[int],
+    y: np.ndarray,
+    sigma_obs: float,
+    *,
+    dtype: Optional[torch.dtype] = None,
+    cg_tol: float = 1.0e-8,
+    infer_load: bool = False,
+    **prior_kwargs,
+) -> ShardedCalibrationProblem:
+    """The chains x domain calibration problem on `mesh`. Raises if the
+    model does not qualify for the sharded stencil forward; the caller
+    falls back to make_problem."""
+    fwd = fwd_mod.build_sharded_stencil_forward(
+        model, mesh, dtype=dtype, cg_tol=cg_tol)
+    if fwd is None:
+        raise ValueError(
+            "model does not qualify for the sharded stencil forward "
+            "(structured HEX8 grid with NNX divisible by the domain axis)")
+    w, yg = obs_grids(fwd.node_shape, obs_nodes, obs_dirs, y)
+    return ShardedCalibrationProblem(
+        fwd=fwd, w_grid=w, y_grid=yg, sigma_obs=float(sigma_obs),
+        infer_load=infer_load, **prior_kwargs)
 
 
 def make_problem(

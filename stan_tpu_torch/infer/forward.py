@@ -17,6 +17,12 @@ chosen by build_forward as the reference chooses them:
 - ForwardProblem: any mesh, with a per-element D_e ([B, E, 6, 6]) on the
   general gather/scatter operator (plain torch).
 
+ShardedStencilForwardProblem is the stencil forward on a chains x domain
+device mesh (parallel/distributed.py): the grid cut into x-slabs over the
+domain axis, the chains into blocks over the rows; it gives the
+log-posterior's value and gradient for hmc.run_chains
+(make_batched_logp_grad).
+
 Gradients flow through each solve implicitly, as jax.lax.custom_linear_solve
 (symmetric=True) gives them in the reference: a torch.autograd.Function
 whose backward is one more chain-batched PCG solve with the same SPD
@@ -28,6 +34,7 @@ SolveStats.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -37,6 +44,9 @@ from stan_tpu_torch.core.model import FEModel
 from stan_tpu_torch.fem import kernels, stencil, structured
 from stan_tpu_torch.fem.operator import (StiffnessOperator, build_operator,
                                          default_dtype)
+from stan_tpu_torch.infer import hmc
+from stan_tpu_torch.parallel.distributed import DeviceMesh, Slabs
+from stan_tpu_torch.parallel.sharded_stencil import halo_pad
 from stan_tpu_torch.solvers import cg as cg_mod
 
 
@@ -380,6 +390,177 @@ class _FieldSolve(torch.autograd.Function):
         return g_lam, g_mu, (w if ctx.needs_input_grad[2] else None), None
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardedStencilForwardProblem:
+    """The stencil forward on a chains x domain device mesh.
+
+    Port of the reference's ShardedStencilForwardProblem. The grid is cut
+    into x-slabs over the mesh's domain axis, the chains into one block per
+    row of its chains axis, and one batched CG loop runs every row (a chain that has
+    converged is frozen, so each keeps its own count, as the reference's
+    sync_axes gives it):
+
+      * the slab matvec is M K(λ, μ) (M u) + (I - M) u with the halo planes
+        of sharded_stencil.halo_pad and one theta sweep per slab
+        (stencil.theta_apply_padded, flags (slab == first, slab == last)):
+        what the reference's slab_theta_apply computes, on the kernel of
+        csrc/theta_sweep.cu on the card;
+      * the gradient comes from an adjoint solve with the same operator,
+        as _StencilSolve's: with w the masked adjoint, ∂/∂s = ⟨w, f0⟩ and
+        ∂/∂λ = -⟨w, K_λ(M u)⟩, ∂/∂μ = -⟨w, K_μ(M u)⟩, each slab's share
+        over its own nodes with the haloed u, summed over the domain (the
+        reference's psum); the prior is added once.
+
+    The grids (free_mask, d_lam, d_mu, f0) are whole, on the mesh's first
+    device; their slabs are placed on the mesh once.
+    """
+
+    tables_lam: dict  # {sig: {offset: 3x3}} unit-λ signature tables
+    tables_mu: dict
+    tables2: torch.Tensor  # pack_theta_tables(tables_lam, tables_mu)
+    free_mask: torch.Tensor  # [3, NNX, NNY, NNZ]
+    d_lam: torch.Tensor
+    d_mu: torch.Tensor
+    f0: torch.Tensor
+    node_shape: tuple
+    cg_tol: float
+    cg_maxiter: int
+    mesh: DeviceMesh
+    stats: SolveStats = dataclasses.field(default_factory=SolveStats)
+
+    @property
+    def dtype(self):
+        return self.f0.dtype
+
+    @property
+    def device(self):
+        return self.f0.device
+
+    @property
+    def ndev(self) -> int:
+        return self.mesh.shape["domain"]
+
+    def to_flat(self, u_grid: torch.Tensor) -> torch.Tensor:
+        """[..., 3, nnx, nny, nnz] -> [..., nnode, 3]."""
+        return u_grid.movedim(-4, -1).reshape(*u_grid.shape[:-4], -1, 3)
+
+    @functools.cached_property
+    def _slabs(self) -> dict:
+        split = functools.partial(self.mesh.split, axis=1)
+        return {"m": split(self.free_mask), "d_lam": split(self.d_lam),
+                "d_mu": split(self.d_mu), "f0": split(self.f0),
+                "tables2": self.mesh.replicate(self.tables2)}
+
+    def _per_chain(self, v: torch.Tensor) -> Slabs:
+        """v [C] as chain-batched blocks [B_r, 1, 1, 1, 1] on the mesh."""
+        rows = self.mesh.shape["chains"]
+        if v.shape[0] % rows:
+            raise ValueError(f"{v.shape[0]} chains do not divide over {rows} "
+                             f"mesh rows")
+        return Slabs(self.mesh.per_chain(v.reshape(-1, 1, 1, 1, 1)), 2, True)
+
+    def _sweeps(self, coef: torch.Tensor, u: Slabs, masked: bool) -> Slabs:
+        """Per chain coef[c, 0]·K_λ(M u) + coef[c, 1]·K_μ(M u) on every slab
+        (coef [C, 2]); with `masked`, the masked SPD action M K (M u) + (I -
+        M) u."""
+        coefs = self.mesh.per_chain(coef.contiguous())
+        out = []
+        for masks, t2s, cs, us in zip(self._slabs["m"].parts,
+                                      self._slabs["tables2"], coefs, u.parts):
+            n = len(us)
+            row = []
+            for s, (m, t2, c, up, u_s) in enumerate(zip(
+                    masks, t2s, cs, halo_pad(masks, us), us)):
+                ku = stencil.theta_apply_padded(t2, c, up, s == 0, s == n - 1)
+                row.append(m * ku + (1.0 - m) * u_s if masked else ku)
+            out.append(row)
+        return Slabs(out, u.axis, u.chains)
+
+    def _pcg(self, lam, mu, rhs: Slabs) -> cg_mod.CGResult:
+        coef = torch.stack([lam, mu], dim=-1)
+        sl = self._slabs
+        diag = sl["m"] * (self._per_chain(lam) * sl["d_lam"]
+                          + self._per_chain(mu) * sl["d_mu"]) + (1.0 - sl["m"])
+        return cg_mod.pcg(lambda u: self._sweeps(coef, u, True), rhs,
+                          diag=diag, tol=self.cg_tol, maxiter=self.cg_maxiter,
+                          ndof=int(3 * np.prod(self.node_shape)),
+                          batched=True, dot=Slabs.dot)
+
+    def _solve(self, lam, mu, s) -> Slabs:
+        """u of every chain for (λ, μ, load scale) [C] each, recorded in
+        stats."""
+        sl = self._slabs
+        res = self._pcg(lam, mu, sl["m"] * (self._per_chain(s) * sl["f0"]))
+        self.stats.record("forward", res)
+        return res.u
+
+    def _loglik_grads(self, lam, mu, u: Slabs, g_v, obs):
+        """(∂/∂λ, ∂/∂μ, ∂/∂s) of Σ_c g_v[c]·loglik_c, [C] each, from one
+        adjoint solve."""
+        w_obs, y_obs, sig2 = obs
+        m = self._slabs["m"]
+        ct = self._per_chain(-g_v / sig2) * (w_obs * (u - y_obs))
+        res = self._pcg(lam, mu, m * ct)
+        self.stats.record("adjoint", res)
+        w = m * res.u
+        one, nil = torch.ones_like(lam), torch.zeros_like(lam)
+        g_lam = -w.dot(self._sweeps(torch.stack([one, nil], -1), u, False))
+        g_mu = -w.dot(self._sweeps(torch.stack([nil, one], -1), u, False))
+        return g_lam, g_mu, w.dot(self._slabs["f0"])
+
+    def make_batched_logp_grad(self, w_grid, y_grid, sigma_obs: float,
+                               theta_to_material: Callable,
+                               prior_logp: Callable) -> Callable:
+        """logp_grad_b: θ [C, D] -> (log posterior [C], gradient [C, D]) for
+        hmc.run_chains. theta_to_material: θ [C, D] -> (λ, μ, load scale),
+        [C] each; prior_logp: θ [C, D] -> [C]. w_grid / y_grid: [3, NNX,
+        NNY, NNZ] observation mask and values. A non-finite value becomes
+        -inf with a zero gradient (hmc.guarded_logp_grad_b)."""
+        grid = functools.partial(torch.as_tensor, dtype=self.dtype,
+                                 device=self.device)
+        obs = (self.mesh.split(grid(np.asarray(w_grid)), 1),
+               self.mesh.split(grid(np.asarray(y_grid)), 1),
+               float(sigma_obs) ** 2)
+
+        def logp(theta):
+            lam, mu, s = (t.to(self.dtype) for t in theta_to_material(theta))
+            return (_ShardedLogLik.apply(lam, mu, s, self, obs)
+                    + prior_logp(theta))
+
+        return hmc.guarded_logp_grad_b(logp)
+
+    def solve_batched(self, thetas: torch.Tensor,
+                      theta_to_material: Callable) -> torch.Tensor:
+        """Per-chain displacement grids u [C, 3, NNX, NNY, NNZ] on the
+        problem's device, by the same sharded solve (forward only)."""
+        with torch.no_grad():
+            lam, mu, s = (t.to(self.dtype)
+                          for t in theta_to_material(thetas))
+            return self._solve(lam, mu, s).gather(self.device)
+
+
+class _ShardedLogLik(torch.autograd.Function):
+    """(λ, μ, s) [C] -> loglik [C] = -Σ w (u - y)² / (2 σ²) over every slab,
+    u the sharded solve; backward: one adjoint solve
+    (ShardedStencilForwardProblem._loglik_grads)."""
+
+    @staticmethod
+    def forward(ctx, lam, mu, s, prob, obs):
+        w_obs, y_obs, sig2 = obs
+        u = prob._solve(lam, mu, s)
+        d = u - y_obs
+        ctx.save_for_backward(lam, mu)
+        ctx.u, ctx.prob, ctx.obs = u, prob, obs
+        return -0.5 * (w_obs * d).dot(d) / sig2
+
+    @staticmethod
+    def backward(ctx, g_v):
+        lam, mu = ctx.saved_tensors
+        g_lam, g_mu, g_s = ctx.prob._loglik_grads(lam, mu, ctx.u, g_v,
+                                                  ctx.obs)
+        return g_lam, g_mu, g_s, None, None
+
+
 def _stencil_forward_pieces(model: FEModel, dtype, device):
     """The structured base operator, unit-coefficient signature tables, raw
     Jacobi diagonal grids and the unit load grid; None if the mesh does not
@@ -422,6 +603,30 @@ def build_stencil_forward(model: FEModel, *, dtype=None, device="cuda",
         free_mask=base.free_mask.contiguous(), d_lam=d_lam.contiguous(),
         d_mu=d_mu.contiguous(), f0=f0,
         node_shape=base.node_shape, cg_tol=cg_tol, cg_maxiter=cg_maxiter)
+
+
+def build_sharded_stencil_forward(
+        model: FEModel, mesh: DeviceMesh, *, dtype=None,
+        cg_tol: float = 1.0e-8, cg_maxiter: int = 0) -> Optional[ShardedStencilForwardProblem]:
+    """The stencil forward on `mesh` (whole grids on its first device), or
+    None if the model does not qualify: a structured HEX8 grid whose NNX the
+    domain axis divides (the slab contract of parallel/sharded_stencil)."""
+    pieces = _stencil_forward_pieces(model, dtype or default_dtype(),
+                                     mesh.devices[0, 0])
+    if pieces is None:
+        return None
+    base, tables_lam, tables_mu, d_lam, d_mu, f0 = pieces
+    if base.node_shape[0] % mesh.shape["domain"]:
+        return None
+    if cg_maxiter == 0:
+        cg_maxiter = _default_infer_maxiter(model.nnode)
+    return ShardedStencilForwardProblem(
+        tables_lam=tables_lam, tables_mu=tables_mu,
+        tables2=stencil.pack_theta_tables(tables_lam, tables_mu, base.dtype,
+                                          base.device),
+        free_mask=base.free_mask.contiguous(), d_lam=d_lam.contiguous(),
+        d_mu=d_mu.contiguous(), f0=f0, node_shape=base.node_shape,
+        cg_tol=cg_tol, cg_maxiter=cg_maxiter, mesh=mesh)
 
 
 def build_structured_field_forward(

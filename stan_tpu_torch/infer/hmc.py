@@ -427,6 +427,19 @@ def guarded_logp_grad_b(logp_fn) -> Callable:
     return logp_grad_b
 
 
+def hmc_kernel(n_leapfrog: int) -> Callable:
+    """run_chains' transition for static-length HMC of n_leapfrog steps,
+    for a caller that brings its own logp_grad_b (such as
+    calibrate.ShardedCalibrationProblem.logp_grad_b())."""
+
+    def transition(target, gen, state, step, inv_mass):
+        state, ap = hmc_transition(target, gen, state, step, inv_mass,
+                                   n_leapfrog)
+        return state, ap, torch.full_like(ap, float(n_leapfrog))
+
+    return transition
+
+
 def run_hmc(
     logp_fn: Callable[[torch.Tensor], torch.Tensor],
     theta0: torch.Tensor,  # [chains, D]
@@ -447,14 +460,8 @@ def run_hmc(
     every draw. See ``run_chains`` for chunks, checkpoint/resume and
     `solve_stats`.
     """
-
-    def transition(target, gen, state, step, inv_mass):
-        state, ap = hmc_transition(target, gen, state, step, inv_mass,
-                                   n_leapfrog)
-        return state, ap, torch.full_like(ap, float(n_leapfrog))
-
     return run_chains(
-        guarded_logp_grad_b(logp_fn), transition, theta0, seed,
+        guarded_logp_grad_b(logp_fn), hmc_kernel(n_leapfrog), theta0, seed,
         n_samples=n_samples, n_warmup=n_warmup, init_step=init_step,
         target_accept=target_accept, checkpoint_path=checkpoint_path,
         checkpoint_every=checkpoint_every,

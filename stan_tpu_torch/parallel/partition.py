@@ -1,12 +1,20 @@
-# Copied from stan_tpu/parallel/partition.py (bfs_node_order only, without the native fast path).
-"""Bandwidth-reducing BFS node ordering (host-side numpy).
+# Copied from stan_tpu/parallel/partition.py (without the native fast path of bfs_node_order).
+"""Domain decomposition: node/element partitioning for the device mesh.
 
-The reference's AssignDOF graph walk (src/STAN_Database/Database.cs:140-234).
-The port's banded direct solver (solvers/banded.py) uses it to narrow the
-band; the domain partition built on the same order comes with multi-GPU.
+The reference's AssignDOF graph walk (src/STAN_Database/Database.cs:140-234)
+gives a locality-preserving 1-D node order. The port's banded direct
+solver (solvers/banded.py) uses it to narrow the band; here it is also cut
+into P equal contiguous blocks, one per device of the domain axis, and
+elements are assigned to the device owning most of their nodes.
+
+Everything here is host-side numpy preprocessing; the output is a
+`Partition` of padded, statically-shaped per-device arrays consumed by
+parallel/sharded.py.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -63,3 +71,77 @@ def bfs_node_order(conn: np.ndarray, nnode: int) -> np.ndarray:
     rest = np.nonzero(~visited)[0]
     order[pos : pos + len(rest)] = rest
     return order
+
+
+@dataclasses.dataclass
+class Partition:
+    """Padded per-device layout over `ndev` domain shards.
+
+    perm:        i64[nnode]      old node index -> new (BFS-blocked) index
+    inv_perm:    i64[nnode]      new -> old
+    nnode_pad:   int             nnode rounded up to ndev * block
+    block:       int             nodes per device (nnode_pad // ndev)
+    conn:        i64[ndev, epb, nn]  reordered-connectivity per device,
+                                 padded with degenerate elements (conn=0)
+    elem_owner:  i64[nelem]      device owning each original element
+    elem_pos:    i64[nelem]      slot of each original element in its shard
+    epb:         int             elements per block (padded)
+    pad_elem:    bool[ndev, epb] True for padding slots
+    """
+
+    perm: np.ndarray
+    inv_perm: np.ndarray
+    nnode_pad: int
+    block: int
+    conn: np.ndarray
+    elem_owner: np.ndarray
+    elem_pos: np.ndarray
+    epb: int
+    pad_elem: np.ndarray
+
+
+def partition(conn: np.ndarray, nnode: int, ndev: int) -> Partition:
+    """Partition the mesh over `ndev` devices.
+
+    Nodes: BFS order cut into equal contiguous blocks (padded).
+    Elements: assigned to the device owning the majority of their (new-index)
+    nodes -- cheap heuristic with good locality on BFS-ordered meshes.
+    """
+    order = bfs_node_order(conn, nnode)  # new -> old
+    perm = np.empty(nnode, dtype=np.int64)  # old -> new
+    perm[order] = np.arange(nnode)
+
+    block = -(-nnode // ndev)
+    nnode_pad = block * ndev
+
+    new_conn = perm[conn]  # [E, nn] in new numbering
+    # Owner = device of the median node (majority-ish, O(E nn log nn))
+    owner = np.median(new_conn // block, axis=1).astype(np.int64)
+    owner = np.clip(owner, 0, ndev - 1)
+
+    nelem, nn = conn.shape
+    counts = np.bincount(owner, minlength=ndev)
+    epb = int(counts.max())
+    # Vectorized bucket fill: stable-sort by owner, position = rank within
+    # the owner's run.
+    sort_idx = np.argsort(owner, kind="stable")
+    starts = np.zeros(ndev, dtype=np.int64)
+    starts[1:] = np.cumsum(counts)[:-1]
+    pos_sorted = np.arange(nelem) - starts[owner[sort_idx]]
+    elem_pos = np.empty(nelem, dtype=np.int64)
+    elem_pos[sort_idx] = pos_sorted
+    conn_sh = np.zeros((ndev, epb, nn), dtype=np.int64)
+    pad = np.ones((ndev, epb), dtype=bool)
+    conn_sh[owner, elem_pos] = new_conn
+    pad[owner, elem_pos] = False
+    return Partition(
+        perm=perm,
+        inv_perm=order,
+        nnode_pad=nnode_pad,
+        block=block,
+        conn=conn_sh,
+        elem_owner=owner,
+        elem_pos=elem_pos,
+        epb=epb,
+        pad_elem=pad,
+    )

@@ -18,6 +18,11 @@ every reduction and threshold is per chain. It does what JAX's vmapped
 while_loop does: the loop runs while any chain runs, and a chain that has
 stopped is frozen with torch.where and its counter stops, so each chain's
 iterations, residual and flags are those of its own solve.
+
+``dot`` is the reduction, as ``axis_name`` is the reference's: a
+domain-sharded solve passes parallel.distributed.Slabs.dot with vectors
+sharded over a device mesh (parallel/sharded_stencil.py,
+parallel/sharded.py), and the recurrence stays this one.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ def pcg(
     ndof: Optional[int] = None,
     x0: Optional[torch.Tensor] = None,
     batched: bool = False,
+    dot: Optional[Callable] = None,
 ) -> CGResult:
     """Solve A u = b with Jacobi-preconditioned CG.
 
@@ -59,10 +65,15 @@ def pcg(
     maxiter 0 caps at ndof, which defaults to b.numel(); x0: initial guess
     (zeros by default). batched: axis 0 of b is a chain axis of independent
     systems (see the module docstring); ndof is then per chain and defaults
-    to b[0].numel().
+    to b[0].numel(). dot: (u, v) -> Σ u·v, a scalar, or per chain [B] when
+    batched (default: torch sums over the tensor, or over each chain's
+    elements).
     """
     if batched:
-        return _pcg_batched(A, b, diag, tol, maxiter, ndof, x0)
+        return _pcg_batched(A, b, diag, tol, maxiter, ndof, x0, dot)
+    if dot is None:
+        def dot(u, v):
+            return torch.sum(u * v)
     if maxiter == 0:
         maxiter = int(ndof if ndof is not None else b.numel())
     inv_diag = None if diag is None else torch.where(
@@ -75,34 +86,34 @@ def pcg(
     r = b - A(x)
     z = precond(r)
     p = z
-    rz = torch.sum(r * z)
+    rz = dot(r, z)
     tiny = torch.finfo(b.dtype).tiny
-    bnorm = max(float(torch.sqrt(torch.sum(b * b))), tiny)
+    bnorm = max(float(torch.sqrt(dot(b, b))), tiny)
     threshold = tol * bnorm
     blowup = 1.0e8 * bnorm
 
     def bad(rnorm):
         return not math.isfinite(rnorm) or rnorm > blowup
 
-    rnorm = float(torch.sqrt(torch.sum(r * r)))
+    rnorm = float(torch.sqrt(dot(r, r)))
     k = 0
     while rnorm > threshold and k < maxiter and not bad(rnorm):
         Ap = A(p)
-        alpha = rz / torch.sum(p * Ap)
+        alpha = rz / dot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
         z = precond(r)
-        rz_n = torch.sum(r * z)
+        rz_n = dot(r, z)
         beta = rz_n / rz
         p = z + beta * p
         rz = rz_n
         k += 1
-        rnorm = float(torch.sqrt(torch.sum(r * r)))  # the per-iteration sync
+        rnorm = float(torch.sqrt(dot(r, r)))  # the per-iteration sync
     return CGResult(u=x, iters=k, residual=rnorm,
                     converged=rnorm <= threshold, diverged=bad(rnorm))
 
 
-def _pcg_batched(A, b, diag, tol, maxiter, ndof, x0) -> CGResult:
+def _pcg_batched(A, b, diag, tol, maxiter, ndof, x0, dot) -> CGResult:
     """pcg over a leading chain axis; the stopping test of every chain is
     the unbatched one, on its own norms, read together once per
     iteration."""
@@ -116,8 +127,9 @@ def _pcg_batched(A, b, diag, tol, maxiter, ndof, x0) -> CGResult:
     def precond(r):
         return r if inv_diag is None else inv_diag * r
 
-    def dot(u, v):  # per chain, over the chain's elements in order
-        return torch.sum((u * v).reshape(B, -1), dim=1)
+    if dot is None:
+        def dot(u, v):  # per chain, over the chain's elements in order
+            return torch.sum((u * v).reshape(B, -1), dim=1)
 
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - A(x)

@@ -217,6 +217,22 @@ def test_cli_solve_nonlinear(tmp_path, capsys):
                                                         "Increment 2"]
 
 
+def test_cli_solve_domain(tmp_path, capsys):
+    """solve --domain 2 on the CPU: the x-slab sharded stencil over two CPU
+    slabs, reported with its width; the result is the library's."""
+    path, _ = _stdb(tmp_path, 7, 2, 2)
+    out, logp = str(tmp_path / "out.STdb"), str(tmp_path / "run.jsonl")
+    assert cli.main(["solve", path, "--domain", "2", "--out", out,
+                     "--log-json", logp, "--device", "cpu"]) == 0
+    assert "Operator: sharded-stencilx2 (2 devices, cpu)" in \
+        capsys.readouterr().out
+    rec = json.loads(open(logp).read().splitlines()[0])
+    assert rec["operator"] == "sharded-stencilx2" and rec["n_domain"] == 2
+    assert rec["true_residual"] <= 1e-6
+    lib = solve_linear_statics(stdb.read(path), device="cpu", n_domain=2)
+    np.testing.assert_array_equal(stdb.read(out).disp[-1], lib.u)
+
+
 @pytest.mark.parametrize("solver", ["Cholesky", "LU"])
 def test_cli_solve_direct(tmp_path, capsys, solver):
     path, _ = _stdb(tmp_path, 3, 2, 2)

@@ -368,3 +368,121 @@ def test_cuda_general_forward_gradient_matches_cpu_float64():
         got[device] = (u.detach().cpu().numpy(), th.grad.cpu().numpy())
     for a, b in zip(got["cuda"], got["cpu"]):
         assert np.abs(a - b).max() <= 1e-8 * np.abs(b).max()
+
+
+def _mesh(devices, n_chains, n_domain):
+    from stan_tpu_torch.parallel import distributed
+
+    return distributed.device_mesh(n_chains, n_domain,
+                                   devices=[devices] * (n_chains * n_domain))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sharded_apply_on_cuda_matches_cpu_slabs(dtype):
+    """The x-slab stencil apply on [cuda:0] * 3 (one stencil_sweep launch
+    per slab, flags (1,0), (0,0), (0,1)) against the same three slabs on
+    the CPU (the plain sweep)."""
+    _need_cuda()
+    from stan_tpu_torch.parallel import sharded_stencil as ss
+
+    m = meshgen.hex_beam(8, 4, 3)  # NNX = 9: three slabs of 3 planes
+    u = torch.as_tensor(np.random.default_rng(9).standard_normal(
+        (3, 9, 5, 4)), dtype=dtype)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        op = ss.build_sharded_stencil_operator(m, 3, dtype=dtype, device=dev)
+        before = stencil.launches
+        got[dev] = ss.sharded_apply(_mesh(dev, 1, 3), op, u.to(dev)).cpu()
+        assert stencil.launches - before == (3 if dev == "cuda" else 0)
+    err = float((got["cuda"] - got["cpu"]).abs().max())
+    assert err <= RTOL[dtype] * float(got["cpu"].abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sharded_theta_apply_on_cuda_matches_cpu_slabs(dtype):
+    """The sharded forward's masked slab matvec (halo planes, then one theta
+    sweep per slab with its flags) on [cuda:0] * 3 for 2 chains (batched
+    launches) and for 1 chain (theta_sweep), against the CPU slabs."""
+    _need_cuda()
+    from stan_tpu_torch.infer import forward
+
+    m = meshgen.hex_beam(8, 4, 3)
+    rng = np.random.default_rng(10)
+    for chains in (2, 1):
+        u = torch.as_tensor(rng.standard_normal((chains, 3, 9, 5, 4)),
+                            dtype=dtype)
+        coef = torch.as_tensor([[1.3e5, 6.1e4], [1.1e5, 8.0e4]][:chains],
+                               dtype=dtype)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            mesh = _mesh(dev, 1, 3)
+            fwd = forward.build_sharded_stencil_forward(m, mesh, dtype=dtype)
+            before = (stencil.theta_launches, stencil.theta_batched_launches)
+            out = fwd._sweeps(coef.to(dev), mesh.split(u.to(dev), 2,
+                                                       chains=True), True)
+            got[dev] = out.gather().cpu()
+            if dev == "cuda":
+                assert (stencil.theta_launches - before[0],
+                        stencil.theta_batched_launches - before[1]) == (
+                            (0, 3) if chains == 2 else (3, 0))
+        err = float((got["cuda"] - got["cpu"]).abs().max())
+        assert err <= RTOL[dtype] * float(got["cpu"].abs().max())
+
+
+def test_sharded_logp_grad_on_cuda_matches_cpu_float64():
+    """The chains x domain log posterior and gradient on a 2 x 3 mesh of
+    [cuda:0] * 6 against the same mesh of CPU slabs, float64."""
+    _need_cuda()
+    from stan_tpu_torch.infer import calibrate
+
+    m = meshgen.hex_beam(8, 3, 3)
+    nodes = np.arange(m.nnode - 12, m.nnode)
+    obs = (np.repeat(nodes, 3), np.tile([0, 1, 2], 12),
+           np.full(36, -1e-4), 1e-5)
+    thetas = np.array([np.log(190000.0), 0.28, 0.0]) + np.random.default_rng(
+        5).normal(0.0, 0.05, (4, 3))
+    got = {}
+    for dev in ("cuda", "cpu"):
+        prob = calibrate.make_sharded_problem(
+            m, _mesh(dev, 2, 3), *obs, dtype=torch.float64, cg_tol=1e-12)
+        v, g = prob.logp_grad_b()(torch.as_tensor(thetas, device=dev))
+        got[dev] = (v.cpu().numpy(), g.cpu().numpy())
+    for a, b in zip(got["cuda"], got["cpu"]):
+        assert np.abs(a - b).max() <= 1e-8 * np.abs(b).max()
+
+
+def test_sharded_solves_across_cards():
+    """One slab per visible card (two or more): the x-slab CG and the ring
+    general CG, with halo copies between cards, against the same slabs on
+    cuda:0 alone (the same operations: equal to rounding), and
+    solve_linear_statics(n_domain=N) routed to the N cards. Skips on a
+    one-card host."""
+    _need_cuda()
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards: the slabs copy between cards")
+    from stan_tpu_torch.parallel import distributed, sharded
+    from stan_tpu_torch.parallel import sharded_stencil as ss
+
+    m = meshgen.hex_beam(4 * n - 1, 4, 4)  # NNX = 4n
+    cards = distributed.device_mesh(1, n)
+    one = _mesh("cuda:0", 1, n)
+    op = ss.build_sharded_stencil_operator(m, n, dtype=torch.float64,
+                                           device="cuda")
+    f = op.free_mask.new_tensor(m.load_vector()).reshape(
+        4 * n, 5, 5, 3).permute(3, 0, 1, 2).contiguous()
+    a, b = (ss.sharded_stencil_pcg(mesh, op, f, tol=1e-12)
+            for mesh in (cards, one))
+    assert a.converged and a.iters == b.iters
+    assert float((a.u - b.u).abs().max()) <= 1e-12 * float(b.u.abs().max())
+    gop, part = sharded.build_sharded_operator(
+        m.coords, m.conn, m.elem_d_matrices(), m.fix_mask(),
+        m.formulation(), n, dtype=torch.float64, device="cuda")
+    fp = gop.free_mask.new_tensor(sharded.shard_rhs(part, m.load_vector()))
+    a, b = (sharded.sharded_pcg(mesh, gop, fp, tol=1e-12)
+            for mesh in (cards, one))
+    assert a.converged and gop.ring
+    assert float((a.u - b.u).abs().max()) <= 1e-12 * float(b.u.abs().max())
+    res = solve_linear_statics(m, device="cuda", n_domain=n, store=False)
+    assert res.operator == f"sharded-stencilx{n}" and res.n_domain == n
+    assert res.converged and res.true_residual <= 1e-6

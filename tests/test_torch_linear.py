@@ -192,11 +192,17 @@ def test_cli_solve_roundtrip(tmp_path, capsys):
 
 
 def test_unported_paths_raise():
-    """Only the domain-sharded solve (item 10) is refused; Cholesky, refused
-    until the direct solvers were ported, now solves."""
+    """Only several processes (item 10c) are refused; the domain-sharded
+    solve (item 10a) and Cholesky, each refused until it was ported, now
+    solve."""
+    from stan_tpu_torch.parallel import distributed
+
     m = meshgen.hex_beam(3, 2, 2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        solve_linear_statics(m, device="cpu", n_domain=2)
+    with pytest.raises(NotImplementedError, match="item 10c"):
+        distributed.initialize(num_processes=2)
+    res = solve_linear_statics(m, device="cpu", dtype=F64, n_domain=2)
+    assert res.operator == "sharded-stencilx2" and res.n_domain == 2
+    assert res.converged
     m.analysis.lin_solver = "Cholesky"
     res = solve_linear_statics(m, device="cpu", dtype=F64)
     assert res.operator == "dense-cholesky" and res.converged

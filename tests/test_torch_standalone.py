@@ -58,6 +58,13 @@ def test_port_file_imports_nothing_of_stan_tpu(rel):
     assert not bad, f"{rel} imports {bad}"
 
 
+def test_scan_covers_every_port_module():
+    """The scan reads every module of the port, parallel/ included."""
+    for name in ("distributed", "partition", "sharded", "sharded_stencil"):
+        assert f"stan_tpu_torch/parallel/{name}.py" in PORT_FILES
+    assert len(PORT_FILES) == len(set(PORT_FILES)) > 40
+
+
 # The port's copies of host modules of the reference, each headed by the
 # name of its source.
 HOST_COPIES = ["core/model.py", "core/meshgen.py", "core/validate.py",
