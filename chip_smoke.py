@@ -22,13 +22,17 @@ Phases, each of which raises on failure:
      divides, z over two tiles) with 3 chains and with one, and the sharded
      forward's slab ([8, 3, 13, 35, 35]: one chain row of a 2 x 3 mesh on
      one of 3 x-slabs of the 32^3 grid); all four flag pairs, float32 and
-     float64, random ghosts. The kernels line's max_abs_err is the float32
-     error at the single-device path's shape, flags (1,1), or at a sharded
-     slab under any flag pair, whichever is larger;
+     float64, random ghosts; and the placed chains' per-row batches of
+     phase 22 ([4, 3, 35, 35, 35] and [8, 3, 35, 35, 35]: 16 chains and
+     32 SMC particles over 4 rows), flags (1,1). The kernels line's
+     max_abs_err is the float32 error at the single-device path's shape,
+     flags (1,1), at a per-row batch, or at a sharded slab under any flag
+     pair, whichever is largest;
   5. at the main paths' shapes ([3, 73, 73, 73], the 70^3 grid, for
      stencil_sweep; [3, 35, 35, 35], the 32^3 grid, for theta_sweep, and
      [3, 73, 73, 73] beside it; [16, 3, 35, 35, 35] for
-     theta_sweep_batched), float32 and float64: each kernel's time with the
+     theta_sweep_batched, and phase 22's per-row [4, ...] and [8, ...]
+     beside it), float32 and float64: each kernel's time with the
      L2 cache warm, by CUDA events around back-to-back wrapper calls in
      turns with its plain version (the kernels line's ms) and from CUDA-graph
      replays (ms_graph), and its time with the L2 flushed before each
@@ -104,7 +108,17 @@ Phases, each of which raises on failure:
      16-chain gradient timed in turns with the unsharded one; then HMC
      through run_chains with its logp_grad_b (float32, 16 chains, 2
      leapfrog steps, 2 warmup + 2 samples): finite samples, acceptance
-     above 0, unconverged solves counted, theta_sweep_batched launched.
+     above 0, unconverged solves counted, theta_sweep_batched launched;
+ 22. chain placement: the 32^3 calibration's 16 chains over a 4 x 1 mesh
+     (every card when there are 4, else [cuda:0] * 4) through
+     make_problem(mesh=): run_hmc(mesh=) in float64 at cg_tol 1e-10 (2
+     leapfrog steps, 2 warmup + 2 samples) against the unplaced run of the
+     same seed, samples within rtol 1e-4 and atol 1e-5; one float32
+     16-chain gradient, placed and unplaced, in turns; run_nuts(mesh=)
+     (max_depth 4, 2 + 2) and run_smc(mesh=) (32 particles, 2 stages) in
+     float32: finite; each run's theta_sweep_batched launches at least the
+     batched loop iterations summed over the rows, and counted by chains
+     per launch.
      No sharded phase calls a plain *_reference sweep on a CUDA tensor.
 
 --kernels runs phases 1-5 only (build, every kernel against its plain
@@ -131,8 +145,10 @@ Two measurements run only when asked for:
              then `cli calibrate --sampler nuts` (short), `cli solve` and
              `cli export` on the same STdb; `cli solve --type
              Nonlinear_Statics --increments 2` on it, `cli solve --solver
-             Cholesky` on a 12x6x6 beam, and `cli calibrate --sampler hmc`
-             (short) on the two-material 32^3 beam.
+             Cholesky` on a 12x6x6 beam, `cli calibrate --sampler hmc`
+             (short) on the two-material 32^3 beam, and `cli calibrate`
+             with `[sharding] chains = 2`: exit code 2 and the ERROR line
+             with one card, a run that records the mesh with two or more.
 
 Prints a JSON line of kernel facts and, last, one JSON line naming the
 device; before those, it checks that no module of stan_tpu was loaded.
@@ -147,7 +163,8 @@ general forwards is plain torch and torch.linalg, as it is XLA in the JAX
 package; the banded solver is float64 host LAPACK in both. So is the
 sharded general operator (phase 20); the sharded stencil phases (18, 19,
 21) run stencil_sweep and theta_sweep_batched on x-slabs with their face
-flags. One process drives every device of a mesh; with one card the mesh
+flags, and phase 22 runs theta_sweep_batched on each row's block of
+chains. One process drives every device of a mesh; with one card the mesh
 repeats cuda:0, so no copy crosses cards there.
 """
 
@@ -212,6 +229,14 @@ SHARD_GENERAL = ((4, True), (3, False))
 SHARD_MESH = (2, 3)
 SHARD_WARMUP, SHARD_SAMPLES, SHARD_LEAPFROG = 2, 2, 2
 SHARD_ITERS_GAP, SHARD_U_GAP, SHARD_FWD_RTOL = 0.02, 1e-4, 1e-8
+# Chain placement (phase 22): the 32^3 calibration's chains over a 4 x 1
+# mesh, HMC, NUTS and SMC cut in length only; placed and unplaced float64
+# HMC agree to the reference's sharded-vs-unsharded tolerance
+# (tests/test_sharded_infer.py:139-140).
+PLACE_ROWS = 4
+PLACE_WARMUP, PLACE_SAMPLES, PLACE_LEAPFROG = 2, 2, 2
+PLACE_NUTS_DEPTH, PLACE_SMC_STAGES = 4, 2
+PLACE_RTOL, PLACE_ATOL = 1e-4, 1e-5
 
 
 # The six tetrahedra of a HEX8 around its corner-0 to corner-6 diagonal, in
@@ -452,11 +477,11 @@ def unit_tables(model):
 
 
 def compare_theta(model, coefs, rng, label, card, batched: bool,
-                  sx=None) -> dict:
+                  sx=None, flags=FLAGS) -> dict:
     """theta_sweep (coefs [P, 2]: one check per pair) or theta_sweep_batched
     (coefs [B, 2]: one batch) against theta_sweep_reference, on the model's
-    grid or, with sx, on a slab of sx x-planes of it; returns {(dtype,
-    flags): max abs error over the checks}."""
+    grid or, with sx, on a slab of sx x-planes of it, under each flag pair
+    of `flags`; returns {(dtype, flags): max abs error over the checks}."""
     from stan_tpu_torch.fem import stencil
 
     tl, tm, node_shape = unit_tables(model)
@@ -470,7 +495,7 @@ def compare_theta(model, coefs, rng, label, card, batched: bool,
         B = coef.shape[0]
         up = torch.as_tensor(rng.standard_normal((B, 3) + padded),
                              dtype=dtype, device="cuda")
-        for lo, hi in FLAGS:
+        for lo, hi in flags:
             name = f"{str(dtype)[6:]} flags ({lo},{hi})"
             if batched:
                 err = check_close(
@@ -1422,6 +1447,187 @@ def sharded_calibration_phase(cal_model, obs, theta0, card) -> int:
     return batched
 
 
+@contextlib.contextmanager
+def batched_shapes():
+    """Within: a Counter of theta_sweep_batched calls by batch size B (up's
+    axis 0), beside the wrapper's own launch count, which it leaves as it
+    is."""
+    from collections import Counter
+
+    from stan_tpu_torch.fem import stencil
+
+    seen = Counter()
+    inner = stencil.theta_sweep_batched
+
+    def recorded(up_b, *args, **kw):
+        seen[up_b.shape[0]] += 1
+        return inner(up_b, *args, **kw)
+
+    stencil.theta_sweep_batched = recorded
+    try:
+        yield seen
+    finally:
+        stencil.theta_sweep_batched = inner
+
+
+def _placed_launches(label, st, seen, card) -> int:
+    """Check and print one placed run's theta_sweep_batched launches: at
+    least the batched loop iterations summed over the rows (one SolveStats
+    for every row's forward); returns them."""
+    from stan_tpu_torch.fem import stencil
+
+    batched = stencil.theta_batched_launches
+    loop = st["forward_loop_iters"] + st["adjoint_loop_iters"]
+    print(f"[{card}] {label}: theta_sweep_batched {batched} (by chains per "
+          f"launch {dict(sorted(seen.items()))}), theta_sweep "
+          f"{stencil.theta_launches}; batched loop iterations over the rows "
+          f"{loop}")
+    _report_solves(label, st, card)
+    require(batched >= loop, f"{label}: {batched} batched launches < {loop} "
+            f"batched loop iterations over the rows")
+    return batched
+
+
+def chain_placement_phase(cal_model, obs, theta0, card) -> int:
+    """Phase 22: the 32^3 calibration's chains placed over a PLACE_ROWS x 1
+    mesh through make_problem(mesh=) and run_hmc / run_nuts / run_smc
+    (mesh=); returns the theta_sweep_batched launches of its runs."""
+    from stan_tpu_torch.infer import calibrate, hmc, nuts, smc
+
+    mesh = domain_mesh(PLACE_ROWS, 1, card)
+    kinds = ("unplaced", "placed")
+
+    def problem(kind, **kw):
+        where = dict(mesh=mesh) if kind == "placed" else dict(device="cuda")
+        return calibrate.make_problem(cal_model, *obs, **where, **kw)
+
+    launches = 0
+    out = {}
+    for kind in kinds:
+        prob = problem(kind, dtype=torch.float64, cg_tol=1e-10)
+        reset_launches()
+        t0 = time.perf_counter()
+        with batched_shapes() as seen:
+            out[kind] = hmc.run_hmc(
+                prob.log_posterior, theta0, 31, n_samples=PLACE_SAMPLES,
+                n_warmup=PLACE_WARMUP, n_leapfrog=PLACE_LEAPFROG,
+                init_step=0.02, solve_stats=prob.fwd.stats,
+                mesh=mesh if kind == "placed" else None)
+            torch.cuda.synchronize()
+        res = out[kind]
+        print(f"[{card}] HMC {kind} {G}^3 float64 cg_tol 1e-10 ({CHAINS} "
+              f"chains, {PLACE_LEAPFROG} leapfrog steps, {PLACE_WARMUP} "
+              f"warmup + {PLACE_SAMPLES} samples): "
+              f"{time.perf_counter() - t0:.2f} s, {res.grad_evals} "
+              f"gradients; acceptance {float(np.mean(res.accept_rate)):.3f}")
+        launches += _placed_launches(f"HMC {kind} float64",
+                                     res.solve_stats, seen, card)
+    a, b = out["placed"], out["unplaced"]
+    gap = float(np.max(np.abs(a.samples - b.samples)
+                       / (PLACE_ATOL + PLACE_RTOL * np.abs(b.samples))))
+    print(f"[{card}] placed vs unplaced HMC samples, float64: max |a - b| "
+          f"{float(np.max(np.abs(a.samples - b.samples))):.3e}, "
+          f"{gap:.3e} of the tolerance (rtol {PLACE_RTOL:g}, atol "
+          f"{PLACE_ATOL:g}); per-chain forward solves "
+          f"{a.solve_stats['forward_solves']} / "
+          f"{b.solve_stats['forward_solves']}")
+    require(a.samples.shape == b.samples.shape == (CHAINS, PLACE_SAMPLES, 3)
+            and np.isfinite(a.samples).all(), "placed HMC not finite")
+    require(gap <= 1.0, f"placed HMC off the unplaced run: {gap}")
+
+    probs = {kind: problem(kind, cg_tol=1e-6) for kind in kinds}
+    lgbs = {kind: hmc.guarded_logp_grad_b(probs[kind].log_posterior)
+            for kind in kinds}
+    lgbs["placed"] = mesh.by_rows(lgbs["placed"])
+    th = torch.as_tensor(theta0, dtype=torch.float32)
+    secs = {kind: [] for kind in kinds}
+    for kind in kinds:
+        lgbs[kind](th)  # the first call of each pays its set-up
+    for kind in ("unplaced", "placed", "placed", "unplaced"):
+        secs[kind].append(wall(lambda: lgbs[kind](th)))
+    print(f"[{card}] one float32 {CHAINS}-chain gradient at {G}^3 (host "
+          f"clock, in turns): unplaced {secs['unplaced'][0]:.4f} / "
+          f"{secs['unplaced'][1]:.4f} s, placed on {PLACE_ROWS} rows "
+          f"{secs['placed'][0]:.4f} / {secs['placed'][1]:.4f} s")
+
+    prob = probs["placed"]
+    reset_launches()
+    t0 = time.perf_counter()
+    with batched_shapes() as seen:
+        res = nuts.run_nuts(prob.log_posterior, theta0, 37,
+                            max_depth=PLACE_NUTS_DEPTH,
+                            n_warmup=PLACE_WARMUP, n_samples=PLACE_SAMPLES,
+                            init_step=0.02, solve_stats=prob.fwd.stats,
+                            mesh=mesh)
+        torch.cuda.synchronize()
+    print(f"[{card}] NUTS placed {G}^3 float32 ({CHAINS} chains, max_depth "
+          f"{PLACE_NUTS_DEPTH}, {PLACE_WARMUP} warmup + {PLACE_SAMPLES} "
+          f"samples): {time.perf_counter() - t0:.2f} s, {res.grad_evals} "
+          f"gradients, evals_per_sample mean "
+          f"{float(np.mean(res.evals_per_sample)):.2f}")
+    launches += _placed_launches("NUTS placed float32", res.solve_stats,
+                                 seen, card)
+    require(np.isfinite(res.samples).all(), "placed NUTS not finite")
+
+    st0 = prob.fwd.stats.as_dict()
+    reset_launches()
+    t0 = time.perf_counter()
+    with batched_shapes() as seen:
+        res = smc.run_smc(prob.log_prior, prob.log_likelihood,
+                          prob.sample_prior, 41, n_particles=SMC_PARTICLES,
+                          n_mcmc=SMC_MCMC, max_stages=PLACE_SMC_STAGES,
+                          mesh=mesh)
+        torch.cuda.synchronize()
+    print(f"[{card}] SMC placed {G}^3 float32 ({SMC_PARTICLES} particles, "
+          f"{SMC_MCMC} Metropolis steps, at most {PLACE_SMC_STAGES} stages):"
+          f" {time.perf_counter() - t0:.2f} s; temperatures "
+          f"{np.round(res.temperatures, 6).tolist()}")
+    launches += _placed_launches("SMC placed float32",
+                                 prob.fwd.stats.since(st0), seen, card)
+    require(np.isfinite(res.particles).all()
+            and np.isfinite(res.log_evidence), "placed SMC not finite")
+    return launches
+
+
+def cli_sharding(card) -> None:
+    """`cli calibrate` with `[sharding] chains = 2` on an STdb of the 32^3
+    beam: with one visible card it must exit with code 2 and the ERROR line
+    (never repeat cuda:0); with two or more it runs and records the mesh."""
+    import io
+    import tempfile
+
+    from stan_tpu_torch.core import meshgen
+    from stan_tpu_torch.io import stdb
+    from stan_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/beam{G}.STdb"
+        stdb.write(meshgen.hex_beam(G, G, G), path)
+        with open(f"{tmp}/run.toml", "w") as f:
+            f.write("[sharding]\nchains = 2\n")
+        argv = ["calibrate", path, "--synthetic", "--sampler", "hmc",
+                "--chains", str(CHAINS), "--warmup", "1", "--samples", "4",
+                "--config", f"{tmp}/run.toml", "--device", "cuda",
+                "--log-json", f"{tmp}/runs.jsonl"]
+        print(f"[{card}] python -m stan_tpu_torch.cli {' '.join(argv)}")
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = cli.main(argv)
+        print(text.getvalue())
+        print(f"[{card}] cli calibrate [sharding] chains = 2: exit code {rc}, "
+              f"{time.perf_counter() - t0:.2f} s")
+        if torch.cuda.device_count() < 2:
+            require(rc == 2 and "ERROR: [sharding]" in text.getvalue(),
+                    "cli calibrate did not refuse a 2-card mesh on one card")
+        else:
+            with open(f"{tmp}/runs.jsonl") as f:
+                rec = json.loads(f.read().splitlines()[0])
+            require(rc == 0 and "chains=2" in (rec["mesh"] or ""),
+                    f"cli calibrate on a 2 x 1 mesh: exit code {rc}, "
+                    f"mesh {rec['mesh']}")
+
+
 def cli_general(card) -> None:
     """`cli solve --type Nonlinear_Statics --increments 2` on an STdb of the
     G^3 beam, `cli solve --solver Cholesky` on a small one, and `cli
@@ -1640,6 +1846,13 @@ def main() -> int:
                                  f"[{CHAINS},3,{G + 3},{G + 3},{G + 3}]",
                                  card, True)
     compare_theta(small, chain_pairs[:3], rng, "5x4x3", card, True)
+    # The placed chains' per-row batches (phase 22): 16 chains over 4 rows
+    # and 32 SMC particles over 4 rows, whole grids (flags (1,1)).
+    row_batched_errs = [
+        compare_theta(cal_model, chain_pairs[:b], rng,
+                      f"row [{b},3,{G + 3},{G + 3},{G + 3}]", card, True,
+                      flags=((1, 1),))
+        for b in (CHAINS // PLACE_ROWS, SMC_PARTICLES // PLACE_ROWS)]
     # Shapes that stress the kernel's tiling: one x-plane (every plane a
     # face), y and z extents that no tile width divides, z over two tiles.
     compare_theta(cal_model, chain_pairs, rng, f"[{CHAINS},3,3,35,35] SX=1",
@@ -1705,27 +1918,37 @@ def main() -> int:
                 (t2.numel() + coef.numel()) * t2.element_size(), flush, card)
             del K, V
 
+        # theta_sweep_batched at the 16 chains of the calibration path, and
+        # at the per-row batches of phase 22 (16 chains and 32 particles
+        # over 4 rows), which only print.
         t2 = stencil.pack_theta_tables(tl32, tm32, dtype, "cuda")
-        coef_b = torch.as_tensor(chain_pairs, dtype=dtype, device="cuda")
-        u_b = torch.as_tensor(rng.standard_normal((CHAINS, 3, *shape32)),
-                              dtype=dtype, device="cuda")
-        up_b = pad(u_b)
         K = assemble_csr([theta_unit(t2, 0), theta_unit(t2, 1)], shape32,
                          dtype)
-        flat = u_b.reshape(CHAINS, n32).T
-        V = torch.cat([coef_b[:, 0] * flat, coef_b[:, 1] * flat]).contiguous()
-        facts[("theta_sweep_batched", dtype)] = measure(
-            "theta_sweep_batched", up_b,
-            lambda: stencil.theta_sweep_batched(up_b, t2, coef_b, 1, 1),
-            lambda: stencil.theta_sweep_reference(up_b, t2, coef_b, 1, 1),
-            lambda: torch.sparse.mm(K, V),
-            lambda r: r.T.reshape(CHAINS, 3, *shape32),
-            (t2.numel() + coef_b.numel()) * t2.element_size(), flush, card)
-        del K, V
+        for B in (CHAINS, CHAINS // PLACE_ROWS, SMC_PARTICLES // PLACE_ROWS):
+            coef_b = torch.as_tensor(chain_pairs[:B], dtype=dtype,
+                                     device="cuda")
+            u_b = torch.as_tensor(rng.standard_normal((B, 3, *shape32)),
+                                  dtype=dtype, device="cuda")
+            up_b = pad(u_b)
+            flat = u_b.reshape(B, n32).T
+            V = torch.cat([coef_b[:, 0] * flat,
+                           coef_b[:, 1] * flat]).contiguous()
+            key = "theta_sweep_batched" + ("" if B == CHAINS else f" B={B}")
+            facts[(key, dtype)] = measure(
+                "theta_sweep_batched", up_b,
+                lambda: stencil.theta_sweep_batched(up_b, t2, coef_b, 1, 1),
+                lambda: stencil.theta_sweep_reference(up_b, t2, coef_b, 1, 1),
+                lambda: torch.sparse.mm(K, V),
+                lambda r: r.T.reshape(B, 3, *shape32),
+                (t2.numel() + coef_b.numel()) * t2.element_size(), flush,
+                card)
+            del V
+        del K
     del flush
     if args.kernels:
         print_kernels([errs, shard_errs], [theta_errs],
-                  [batched_errs, shard_batched_errs], facts, None)
+                      [batched_errs, shard_batched_errs, *row_batched_errs],
+                      facts, None)
         print(json.dumps({"partial": "kernels only (phases 1-5): no main "
                           "path ran", "device": device()}))
         return 0
@@ -1894,15 +2117,20 @@ def main() -> int:
         sharded_general_phase(card)
         batched_launches += sharded_calibration_phase(
             cal_model, (obs_nodes, obs_dirs, y, sigma), theta0, card)
+        # -- chains placed over a device mesh -----------------------------
+        batched_launches += chain_placement_phase(
+            cal_model, (obs_nodes, obs_dirs, y, sigma), theta0, card)
     if args.cli:
         cli_calibration(card)
         cli_nuts_export(card)
         cli_general(card)
+        cli_sharding(card)
 
     stray = sorted(m for m in sys.modules if m.split(".")[0] == "stan_tpu")
     require(not stray, f"the port loaded modules of stan_tpu: {stray}")
     print_kernels([errs, shard_errs], [theta_errs],
-                  [batched_errs, shard_batched_errs], facts,
+                  [batched_errs, shard_batched_errs, *row_batched_errs],
+                  facts,
                   (launches, theta_launches, batched_launches))
     print(json.dumps({"ok": True, "device": device()}))
     return 0

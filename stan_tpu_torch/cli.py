@@ -15,8 +15,13 @@ converged, 1 if not, 2 if the model is invalid.
 ``calibrate`` infers (E, ν) from the STdb's stored displacements (or, with
 --synthetic, from a solve plus noise) with the FEM solve as the forward
 model: NUTS (the config's default), HMC, mean-field ADVI or adaptive SMC,
-all chain- or particle-batched on one device. It prints the posterior
-summary and the count of CG solves that stopped unconverged.
+all chain- or particle-batched. The config's [sharding] section places
+HMC's, NUTS's and SMC's chains over a (chains x domain) device mesh, as
+the reference's does: explicit extents build the mesh over the visible
+cards (with --device cpu, over that many CPU slots), and with none, more
+than one visible card and a chain count they divide, every card goes on
+the chains axis. It prints the mesh, the posterior summary and the count
+of CG solves that stopped unconverged.
 
 ``import``, ``export``, ``strip-results`` and ``info`` are the reference's
 data pipeline: Nastran .bdf to STdb, results to ParaView .vtu (fields
@@ -142,16 +147,47 @@ def _cmd_solve(args) -> int:
     return 0 if res.converged else 1
 
 
+def _calibration_mesh(sharding, n_chains: int, device):
+    """The device mesh of `calibrate` (stan_tpu/cli.py:192-216), or None.
+    Explicit [sharding] extents build a chains x domain mesh over the
+    visible cards, or over as many CPU slots with a CPU device (the
+    stand-in for the reference's virtual CPU devices); a mesh that needs
+    more cards than are visible is refused, never repeated on one card.
+    With no extents, more than one visible card and a chain count they
+    divide, every card goes on the chains axis. Raises ValueError on a
+    mismatch."""
+    import torch
+
+    from stan_tpu_torch.parallel import distributed
+
+    if sharding.chains > 1 or sharding.domain > 1:
+        devices = None
+        if device.type != "cuda":
+            devices = [device] * (sharding.chains * sharding.domain)
+        try:
+            return distributed.device_mesh(sharding.chains, sharding.domain,
+                                           devices=devices)
+        except ValueError as e:
+            raise ValueError(f"[sharding] {e}") from None
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+    if n_dev > 1 and n_chains % n_dev == 0:
+        return distributed.device_mesh(n_dev, 1)
+    return None
+
+
 def _cmd_calibrate(args) -> int:
     """Bayesian calibration of (E, ν) against observed displacements, with
-    the FEM solve as the forward model, on one device."""
+    the FEM solve as the forward model, on one device or a [sharding]
+    device mesh."""
     import time
 
     import numpy as np
     import torch
 
     from stan_tpu_torch.core import validate
+    from stan_tpu_torch.fem.operator import resolve_device
     from stan_tpu_torch.io import stdb
+    from stan_tpu_torch.parallel import distributed
     from stan_tpu_torch.utils import config as config_mod
     from stan_tpu_torch.utils import runlog
     from stan_tpu_torch.infer import calibrate as cal_mod
@@ -169,11 +205,6 @@ def _cmd_calibrate(args) -> int:
         inf.warmup = args.warmup
     if args.samples is not None:
         inf.samples = args.samples
-    if cfg.sharding.chains > 1 or cfg.sharding.domain > 1:
-        raise NotImplementedError(
-            "a [sharding] device mesh for the samplers is not ported yet: "
-            "ROADMAP.md queue 1, item 10b (chain placement over devices); "
-            "the CLI samples on one device")
 
     with timer.phase("Read database"):
         model = stdb.read(args.path)
@@ -206,10 +237,27 @@ def _cmd_calibrate(args) -> int:
         sigma = max(inf.sigma_obs, 1e-3 * float(np.abs(y).max()))
         y = y + rng.normal(0.0, sigma, y.shape)
 
+    # Device mesh for chain placement ([sharding]; the reference's
+    # stan_tpu/cli.py:192-216): a mismatch is a user error, reported with
+    # exit code 2.
+    try:
+        mesh = _calibration_mesh(cfg.sharding, inf.chains,
+                                 resolve_device(args.device))
+    except ValueError as e:
+        print(f"  ERROR: {e}")
+        return 2
+    if mesh is not None:
+        n_rows = mesh.shape["chains"]
+        if inf.chains % n_rows:
+            print(f"  ERROR: chains={inf.chains} not divisible by the "
+                  f"chains mesh axis ({n_rows})")
+            return 2
+        print(f"   {distributed.describe(mesh)}")
+
     with timer.phase("Build posterior"):
         prob = cal_mod.make_problem(model, obs_nodes, obs_dirs, y, sigma,
                                     device=args.device, cg_tol=args.cg_tol,
-                                    infer_load=inf.infer_load)
+                                    infer_load=inf.infer_load, mesh=mesh)
 
     # Overdispersed chain initialisations (one θ0 tiled across chains would
     # make R-hat understate non-convergence): jitter each chain around the
@@ -235,7 +283,7 @@ def _cmd_calibrate(args) -> int:
                 nuts_mod.run_nuts
             out = run(prob.log_posterior, theta0, inf.seed,
                       n_warmup=inf.warmup, n_samples=inf.samples,
-                      solve_stats=prob.fwd.stats)
+                      solve_stats=prob.fwd.stats, mesh=mesh)
             samples = out.samples  # [chains, n, 3]
             accept = float(np.mean(out.accept_rate))
             rhat, ess = np.max(out.rhat), np.min(out.ess)
@@ -252,7 +300,7 @@ def _cmd_calibrate(args) -> int:
             out = smc_mod.run_smc(prob.log_prior, prob.log_likelihood,
                                   prob.sample_prior, inf.seed,
                                   n_particles=max(inf.chains * 64, 256),
-                                  device=prob.fwd.device)
+                                  device=prob.fwd.device, mesh=mesh)
             samples = out.particles[None]
             accept = float(np.mean(out.acceptance))
     wall = time.perf_counter() - t0
@@ -284,7 +332,8 @@ def _cmd_calibrate(args) -> int:
             "calibrate", model=model, timer=timer,
             sampler=inf.sampler, chains=inf.chains, draws=n_draws,
             samples_per_s=sps, accept=accept, path=args.path,
-            mesh=None, n_devices=torch.cuda.device_count(),
+            mesh=distributed.describe(mesh) if mesh is not None else None,
+            n_devices=torch.cuda.device_count(),
             rhat=float(rhat) if rhat is not None else None,
             device=args.device, solve_stats=st))
     return 0

@@ -13,12 +13,19 @@ Priors (weakly informative):
   log s (load) ~ Normal(0, sigma_logs)
 Likelihood: y ~ Normal(u_obs(θ), sigma_obs), independent per observed DOF.
 
-The chains x domain problem (make_sharded_problem, obs_grids,
-ShardedCalibrationProblem) has the same posterior with the forward solve
-cut into x-slabs over a device mesh (forward.ShardedStencilForwardProblem);
-its logp_grad_b() feeds hmc.run_chains. Placing chains over devices for
-the samplers (run_hmc / run_nuts / run_smc on a mesh) is ROADMAP.md queue
-1, item 10b.
+On a device mesh, two forms:
+
+  * make_problem(mesh=) places chains: one forward per distinct first
+    device of the mesh's rows, with the same routing, all counting into
+    one SolveStats. log_posterior, log_likelihood and log_prior solve θ on
+    θ's device, so a block of chains that run_hmc, run_nuts or run_smc
+    (mesh=) hands to row r solves on row r's device. prob.fwd is the first
+    device's forward.
+  * The chains x domain problem (make_sharded_problem, obs_grids,
+    ShardedCalibrationProblem) has the same posterior with the forward
+    solve also cut into x-slabs over the domain axis
+    (forward.ShardedStencilForwardProblem); its logp_grad_b() places
+    itself and feeds hmc.run_chains without mesh=.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ import torch.nn.functional as F
 
 from stan_tpu_torch.core.model import FEModel
 from stan_tpu_torch.infer import forward as fwd_mod
-from stan_tpu_torch.parallel.distributed import DeviceMesh
+from stan_tpu_torch.parallel.distributed import DeviceMesh, canonical
 
 
 @dataclasses.dataclass
@@ -45,13 +52,16 @@ class CalibrationProblem:
     sigma_logE: float = 1.0
     sigma_logs: float = 0.5
     infer_load: bool = False  # fix log s = 0 unless enabled
+    # The forwards on the other rows' devices of a mesh (make_problem(
+    # mesh=)), each sharing fwd's SolveStats.
+    row_fwds: tuple = ()
 
     def __post_init__(self):
-        # Each observation's index into the forward's layout, on the device
-        # once, so the gather in u_obs copies nothing from the host: (node,
-        # dir) for the general forward, (dir, i, j, k) on the node grid of
-        # the structured ones (meshgen numbering: node = i*nny*nnz + j*nnz
-        # + k).
+        # Each observation's index into the forward's layout, on each
+        # forward's device once, so the gather in u_obs copies nothing from
+        # the host: (node, dir) for the general forward, (dir, i, j, k) on
+        # the node grid of the structured ones (meshgen numbering: node =
+        # i*nny*nnz + j*nnz + k).
         nodes, dirs = self.obs_idx[:, 0], self.obs_idx[:, 1]
         if isinstance(self.fwd, fwd_mod.ForwardProblem):
             idx = np.stack([nodes, dirs])
@@ -59,13 +69,24 @@ class CalibrationProblem:
             _, nny, nnz = self.fwd.node_shape
             idx = np.stack([dirs, nodes // (nny * nnz),
                             (nodes // nnz) % nny, nodes % nnz])
-        self._idx = tuple(torch.as_tensor(idx, device=self.fwd.device))
+        self._on = {
+            f.device: (f, tuple(torch.as_tensor(idx, device=f.device)),
+                       self.y.to(f.device))
+            for f in (self.fwd, *self.row_fwds)}
+
+    def _at(self, device) -> tuple:
+        """(forward, observation index, y) on `device`."""
+        if device not in self._on:
+            raise ValueError(f"θ lies on {device}; this problem's forwards "
+                             f"are on {sorted(map(str, self._on))}")
+        return self._on[device]
 
     def u_obs(self, theta: torch.Tensor) -> torch.Tensor:
-        """Forward displacements at the observed DOFs, [C, n_obs]; θ rows
-        are (log E, ν, log s)."""
-        u = fwd_mod.solve_theta(self.fwd, theta)
-        return u[(slice(None),) + self._idx]
+        """Forward displacements at the observed DOFs, [C, n_obs], solved on
+        θ's device; θ rows are (log E, ν, log s)."""
+        fwd, idx, _ = self._at(theta.device)
+        u = fwd_mod.solve_theta(fwd, theta)
+        return u[(slice(None),) + idx]
 
     def log_posterior(self, theta: torch.Tensor) -> torch.Tensor:
         """Unnormalised log posterior [C] of θ [C, 3] in the unconstrained
@@ -75,7 +96,7 @@ class CalibrationProblem:
         log_s = theta[:, 2] if self.infer_load else torch.zeros_like(log_E)
 
         pred = self.u_obs(torch.stack([log_E, nu, log_s], dim=1))
-        resid = (self.y - pred) / self.sigma_obs
+        resid = (self._at(theta.device)[2] - pred) / self.sigma_obs
         loglike = -0.5 * torch.sum(resid ** 2, dim=1)
         return loglike + self._log_prior(theta, self.infer_load)
 
@@ -223,21 +244,35 @@ def make_problem(
     sigma_obs: float,
     *,
     dtype=None,
-    device="cuda",
+    device=None,
     cg_tol: float = 1.0e-8,
     infer_load: bool = False,
     prefer_stencil: bool = True,
+    mesh: Optional[DeviceMesh] = None,
     **prior_kwargs,
 ) -> CalibrationProblem:
     """The calibration posterior of `model` against observations y at
-    (obs_nodes, obs_dirs), on `device` in `dtype` (float32 by default),
-    with the forward problem build_forward routes to (prefer_stencil=False:
-    the general one)."""
-    fwd = fwd_mod.build_forward(model, dtype=dtype, device=device,
-                                cg_tol=cg_tol, prefer_stencil=prefer_stencil)
+    (obs_nodes, obs_dirs), on `device` (default "cuda") in `dtype` (float32
+    by default), with the forward problem build_forward routes to
+    (prefer_stencil=False: the general one).
+
+    With `mesh`, a forward on each distinct first device of its rows
+    (forward.build_row_forwards; the module docstring); `device` defaults
+    to the mesh's first device, and another one is refused (ValueError)."""
+    kw = dict(dtype=dtype, cg_tol=cg_tol, prefer_stencil=prefer_stencil)
+    if mesh is None:
+        fwds = [fwd_mod.build_forward(model, device=device or "cuda", **kw)]
+    else:
+        home = mesh.devices[0, 0]
+        if device is not None and canonical(device) != home:
+            raise ValueError(f"device {device!r} is not the mesh's first "
+                             f"device {home}")
+        fwds = fwd_mod.build_row_forwards(model, mesh, **kw)
+    fwd = fwds[0]
     obs_idx = np.stack([np.asarray(obs_nodes, np.int64),
                         np.asarray(obs_dirs, np.int64)], axis=1)
     return CalibrationProblem(
         fwd=fwd, obs_idx=obs_idx,
         y=torch.as_tensor(np.asarray(y), dtype=fwd.dtype, device=fwd.device),
-        sigma_obs=float(sigma_obs), infer_load=infer_load, **prior_kwargs)
+        sigma_obs=float(sigma_obs), infer_load=infer_load,
+        row_fwds=tuple(fwds[1:]), **prior_kwargs)

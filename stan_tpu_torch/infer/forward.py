@@ -21,7 +21,9 @@ ShardedStencilForwardProblem is the stencil forward on a chains x domain
 device mesh (parallel/distributed.py): the grid cut into x-slabs over the
 domain axis, the chains into blocks over the rows; it gives the
 log-posterior's value and gradient for hmc.run_chains
-(make_batched_logp_grad).
+(make_batched_logp_grad). build_row_forwards builds one of the three
+forwards per row of a mesh, for a calibration whose chains alone are placed
+(calibrate.make_problem(mesh=)).
 
 Gradients flow through each solve implicitly, as jax.lax.custom_linear_solve
 (symmetric=True) gives them in the reference: a torch.autograd.Function
@@ -87,7 +89,13 @@ class SolveStats:
     """Counts over every solve a forward problem has run; each chain of a
     chain-batched solve counts as one solve. ``*_loop_iters`` counts the
     iterations of the batched CG loops themselves (the most any chain of
-    that solve took), which is what the card runs."""
+    that solve took), which is what the card runs.
+
+    The forwards of a problem placed on a mesh (build_row_forwards) share
+    one SolveStats: each row solves its own block of chains, so the
+    per-chain counts (solves, iterations, unconverged) are those of the
+    same chains without a mesh, and ``*_loop_iters`` sums the rows'
+    loops."""
 
     forward_solves: int = 0
     forward_iters: int = 0
@@ -687,6 +695,17 @@ def build_forward(model: FEModel, *, dtype=None, device="cuda",
         op0=op, f0=torch.as_tensor(model.load_vector(), dtype=dtype,
                                    device=op.device),
         cg_tol=cg_tol, cg_maxiter=cg_maxiter)
+
+
+def build_row_forwards(model: FEModel, mesh: DeviceMesh, **kw) -> list:
+    """build_forward(model, **kw) on each distinct first device of the
+    mesh's rows (mesh.devices[r, 0], in row order: one forward for a mesh
+    of ["cpu"] * n or [cuda:0] * n), each routed alike; the later ones
+    share the first one's SolveStats."""
+    devices = list(dict.fromkeys(mesh.row_devices()))
+    fwds = [build_forward(model, device=d, **kw) for d in devices]
+    return [fwds[0]] + [dataclasses.replace(f, stats=fwds[0].stats)
+                        for f in fwds[1:]]
 
 
 def solve_theta(fwd, theta: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Hamiltonian Monte Carlo with Stan-style windowed warmup, batched chains.
 
-Port of stan_tpu/infer/hmc.py for one device:
+Port of stan_tpu/infer/hmc.py:
 
   * the target is a chain-batched log density θ [C, D] -> [C] that torch
     can differentiate (for FEM calibration, infer/calibrate.py's
@@ -247,6 +247,8 @@ def run_chains(
     checkpoint_every: int = 0,
     kernel_id: str = "",
     solve_stats=None,
+    mesh=None,
+    chain_axis: str = "chains",
 ) -> HMCResult:
     """Shared chunked, checkpointed loop for batched MCMC chains.
 
@@ -256,6 +258,20 @@ def run_chains(
     which run_chains hands to the kernel so that it counts every
     evaluation (grad_evals). The state stays on theta0's device and in its
     dtype.
+
+    ``mesh``: a DeviceMesh whose first device holds theta0. Each call of
+    the target is cut into one block of chains per row of ``chain_axis``
+    (DeviceMesh.by_rows; a chain count the rows do not divide is refused
+    with ValueError), evaluated on the row's first device, and joined
+    back in row order; the state, the generators and the draws stay on
+    the first device, so a resumed run and a short final chunk keep the
+    placement and the draws are those of the run without a mesh. The
+    domain axis is not used: the reference replicates a row's chains over
+    its domain devices, the port evaluates them once, on the row's first
+    device. A target that places itself (such as
+    calibrate.ShardedCalibrationProblem.logp_grad_b(), which cuts its
+    chains over the rows and its grid over the domain axis) is passed
+    without ``mesh``.
 
     Draws come in chunks of ``checkpoint_every`` samples (default: 10
     chunks with a checkpoint, else one); with ``checkpoint_path`` the chain
@@ -268,6 +284,12 @@ def run_chains(
     theta0 = torch.as_tensor(theta0)
     dev = theta0.device
     n_chains, dim = theta0.shape
+    if mesh is not None:
+        if dev != mesh.devices[0, 0]:
+            raise ValueError(f"theta0 lies on {dev}, the mesh's first device "
+                             f"is {mesh.devices[0, 0]}: the sampler's state "
+                             f"stays there")
+        logp_grad_b = mesh.by_rows(logp_grad_b, chain_axis)
     mass_flags = warmup_window_flags(n_warmup)
     stats0 = solve_stats.as_dict() if solve_stats is not None else None
     n_evals = 0
@@ -453,12 +475,14 @@ def run_hmc(
     checkpoint_path: Optional[str] = None,
     checkpoint_every: int = 0,
     solve_stats=None,
+    mesh=None,
+    chain_axis: str = "chains",
 ) -> HMCResult:
     """Run batched HMC chains with windowed warmup on theta0's device.
 
     `logp_fn` is a chain-batched log density [C, D] -> [C]; `seed` fixes
-    every draw. See ``run_chains`` for chunks, checkpoint/resume and
-    `solve_stats`.
+    every draw. See ``run_chains`` for chunks, checkpoint/resume,
+    `solve_stats` and the chains' placement over `mesh`.
     """
     return run_chains(
         guarded_logp_grad_b(logp_fn), hmc_kernel(n_leapfrog), theta0, seed,
@@ -468,7 +492,7 @@ def run_hmc(
         # Not the reference's "hmc:leapfrog{n}": the generators differ, so a
         # JAX checkpoint must not resume here, nor a torch one there.
         kernel_id=f"torch-hmc:leapfrog{n_leapfrog}",
-        solve_stats=solve_stats,
+        solve_stats=solve_stats, mesh=mesh, chain_axis=chain_axis,
     )
 
 

@@ -236,9 +236,12 @@ def run_nuts(
     checkpoint_path: Optional[str] = None,
     checkpoint_every: int = 0,
     solve_stats=None,
+    mesh=None,
+    chain_axis: str = "chains",
 ) -> hmc_mod.HMCResult:
     """NUTS with HMC's windowed warmup on theta0's device; the same chunked
-    checkpoint/resume as run_hmc (shared loop: hmc.run_chains).
+    checkpoint/resume and placement over `mesh` as run_hmc (shared loop:
+    hmc.run_chains; each lockstep leaf evaluates the target row by row).
     `logp_fn` is a chain-batched log density [C, D] -> [C]; `seed` fixes
     every draw. evals_per_sample counts each chain's own leapfrog steps;
     grad_evals counts the chain-batched evaluations the lockstep batch
@@ -257,5 +260,5 @@ def run_nuts(
         # Not the reference's "nuts:maxdepth{n}": the generators differ, so
         # neither side resumes the other's checkpoint.
         kernel_id=f"torch-nuts:maxdepth{max_depth}",
-        solve_stats=solve_stats,
+        solve_stats=solve_stats, mesh=mesh, chain_axis=chain_axis,
     )

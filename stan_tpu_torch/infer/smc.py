@@ -1,6 +1,6 @@
 """Sequential Monte Carlo: adaptive-tempering particle sampler.
 
-Port of stan_tpu/infer/smc.py for one device. Standard adaptive-tempering
+Port of stan_tpu/infer/smc.py. Standard adaptive-tempering
 SMC (Del Moral et al.):
 
   * particles start from the prior; the likelihood is annealed prior ->
@@ -15,6 +15,14 @@ The particle axis is the batch axis of every call: `log_prior` and
 chain-batched solve per call, under torch.no_grad(), so no adjoint is
 solved). The bisection for the next temperature runs on the host in numpy
 against the device-computed log-likelihoods, as in the reference.
+
+With ``mesh=`` the particles are placed over the mesh's chains axis as
+hmc.run_chains places chains: `log_prior` and `log_likelihood` are
+evaluated row by row (DeviceMesh.by_rows), row r's block of particles on
+the row's first device, and the values come back to the mesh's first
+device. The weights, the ESS bisection, the systematic resampling, the
+walk scale and every draw stay global there, as the reference's psum and
+gather make them, so placement changes no draw.
 
 Randomness, from one generator on `device` seeded from
 `seed`: sample_prior(gen, N) first; then per stage the resampling uniform
@@ -31,6 +39,7 @@ import numpy as np
 import torch
 
 from stan_tpu_torch.fem.operator import resolve_device
+from stan_tpu_torch.parallel.distributed import canonical
 
 
 @dataclasses.dataclass
@@ -101,11 +110,25 @@ def run_smc(
     ess_target: float = 0.5,
     n_mcmc: int = 5,
     max_stages: int = 50,
-    device="cuda",
+    device=None,
+    mesh=None,
+    particle_axis: str = "chains",
 ) -> SMCResult:
     """Adaptive-tempering SMC from prior to prior*likelihood, on `device`
-    (sample_prior(gen, n) draws there from the generator it is given)."""
-    gen = torch.Generator(device=resolve_device(device))
+    (default: the mesh's first device, else "cuda"; sample_prior(gen, n)
+    draws there from the generator it is given). With `mesh`, the
+    particles are placed over its `particle_axis` (module docstring); a
+    particle count its rows do not divide is refused, and so is a
+    `device` other than the mesh's first (ValueError)."""
+    if mesh is not None:
+        home = mesh.devices[0, 0]
+        if device is not None and canonical(resolve_device(device)) != home:
+            raise ValueError(f"device {device!r} is not the mesh's first "
+                             f"device {home}, where the particles stay")
+        device = home
+        log_prior = mesh.by_rows(log_prior, particle_axis)
+        log_likelihood = mesh.by_rows(log_likelihood, particle_axis)
+    gen = torch.Generator(device=resolve_device(device or "cuda"))
     gen.manual_seed(seed)
     particles = sample_prior(gen, n_particles)  # [N, D]
 

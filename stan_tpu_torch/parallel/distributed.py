@@ -19,6 +19,13 @@ shard_map:
     the row's first device and sums them there in slab order, so a result
     does not depend on timing. Per-chain values then go to the mesh's
     first device.
+  * Chain placement for the samplers (DeviceMesh.chain_rows, join_rows,
+    by_rows): a chain-batched function evaluated row by row, row r's
+    block of chains on the row's first device, the results joined in row
+    order on the mesh's first device. The rows run one after another from
+    the one host thread.
+
+Every cut of chains over the rows is row_blocks (torch.tensor_split).
 
 Several processes (torch.distributed, NCCL) are not ported: initialize
 raises for more than one process.
@@ -35,6 +42,21 @@ import torch
 AXES = ("chains", "domain")
 
 
+def canonical(device) -> torch.device:
+    """torch.device(device), with a CUDA device's index filled in (the
+    current card's), so that it compares equal to a tensor's device."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def row_blocks(t: torch.Tensor, n_rows: int) -> tuple:
+    """The chains of t (axis 0) cut into n_rows consecutive blocks, row r's
+    block r: the one cut of chains over a mesh's rows."""
+    return t.tensor_split(n_rows)
+
+
 class DeviceMesh:
     """A [chains, domain] grid of torch.devices of one type."""
 
@@ -45,7 +67,7 @@ class DeviceMesh:
                              f"got shape {shape}")
         grid = np.empty(shape, dtype=object)
         for r, s in np.ndindex(shape):
-            grid[r, s] = torch.device(devices[r][s])
+            grid[r, s] = canonical(devices[r][s])
         kinds = {d.type for d in grid.flat}
         if len(kinds) != 1:
             raise ValueError(f"a mesh's devices must be of one type, got "
@@ -63,7 +85,7 @@ class DeviceMesh:
         its device; with `chains`, axis 0 is also cut into one block of
         chains per row, else every row gets the whole of it."""
         n_rows, n_slabs = self.devices.shape
-        rows = t.tensor_split(n_rows) if chains else [t] * n_rows
+        rows = row_blocks(t, n_rows) if chains else [t] * n_rows
         return Slabs([[b.to(dev).contiguous()
                        for b, dev in zip(row.tensor_split(n_slabs, dim=axis),
                                          self.devices[r])]
@@ -73,7 +95,48 @@ class DeviceMesh:
         """[r][s]: row r's block of the chains of t (axis 0) on device
         [r, s]."""
         return [[row.to(dev) for dev in self.devices[r]]
-                for r, row in enumerate(t.tensor_split(self.devices.shape[0]))]
+                for r, row in enumerate(row_blocks(t, self.devices.shape[0]))]
+
+    def row_devices(self, axis: str = "chains") -> list:
+        """The first device of each block of `axis`: devices[r, 0] for the
+        chains axis, devices[0, s] for the domain axis."""
+        if axis not in self.axis_names:
+            raise ValueError(f"no mesh axis {axis!r}; the axes are "
+                             f"{self.axis_names}")
+        return list(self.devices[:, 0] if axis == "chains"
+                    else self.devices[0, :])
+
+    def chain_rows(self, t: torch.Tensor, axis: str = "chains") -> list:
+        """t's chains (axis 0) cut into one block per row of `axis`, block
+        r on row r's first device. Refuses a chain count that the rows do
+        not divide, as placing chains over a mesh axis does."""
+        devs = self.row_devices(axis)
+        if t.shape[0] % len(devs):
+            raise ValueError(f"{t.shape[0]} chains not divisible by the "
+                             f"{axis} mesh axis ({len(devs)})")
+        return [b.to(dev) for b, dev in zip(row_blocks(t, len(devs)), devs)]
+
+    def join_rows(self, blocks, device=None) -> torch.Tensor:
+        """chain_rows' inverse: the blocks concatenated in row order on
+        `device` (default: the mesh's first)."""
+        device = self.devices[0, 0] if device is None else device
+        return torch.cat([b.to(device) for b in blocks])
+
+    def by_rows(self, fn, axis: str = "chains"):
+        """fn, a chain-batched function of t [C, ...] to a tensor or a tuple
+        of tensors with the chains on axis 0, evaluated row by row: row r's
+        block of chains on its first device (chain_rows), the results
+        joined in row order on t's device. Only the first device of a row
+        evaluates: the rest of the row (its domain devices) is not used."""
+
+        def placed(t):
+            outs = [fn(b) for b in self.chain_rows(t, axis)]
+            if isinstance(outs[0], tuple):
+                return tuple(self.join_rows(parts, t.device)
+                             for parts in zip(*outs))
+            return self.join_rows(outs, t.device)
+
+        return placed
 
     def replicate(self, t: torch.Tensor) -> list:
         """[r][s]: t on device [r, s]."""
@@ -156,7 +219,7 @@ class Slabs:
             if isinstance(a, torch.Tensor):
                 if n_chains is not None and a.dim() and \
                         a.shape[0] == n_chains:
-                    a = a.tensor_split(n_rows)[r]
+                    a = row_blocks(a, n_rows)[r]
                 return a.to(dev)
             return a
 
@@ -217,8 +280,9 @@ def initialize(coordinator_address: Optional[str] = None,
 def device_mesh(n_chains: int = 1, n_domain: Optional[int] = None,
                 devices: Optional[Sequence] = None) -> DeviceMesh:
     """The (chains, domain) mesh over `devices` (default: the visible CUDA
-    cards). ``n_domain=None`` takes every remaining device. Raises if the
-    extents do not fit the devices (refuse, do not shrink)."""
+    cards). ``n_domain=None`` takes every remaining device. Raises
+    ValueError if the extents do not fit the devices (refuse, do not
+    shrink)."""
     if devices is None:
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]

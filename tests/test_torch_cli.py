@@ -370,6 +370,74 @@ def test_cli_calibrate_smc(tmp_path, capsys, monkeypatch):
     assert st["forward_solves"] > 0 and st["adjoint_solves"] == 0
 
 
+def test_cli_calibrate_chain_sharded(tmp_path, capsys, monkeypatch):
+    """tests/test_aux.py:250-270: the [sharding] section reaches the
+    sampler; calibrate builds the (chains x domain) mesh, over eight CPU
+    slots with --device cpu, and records it in the run log. HMC runs 2
+    leapfrog steps (the CLI's: 16), 1 warmup transition and 4 draws."""
+    from stan_tpu_torch.infer import hmc
+
+    monkeypatch.setattr(hmc, "run_hmc", _short(hmc, "run_hmc",
+                                               n_leapfrog=2))
+    path, _ = _stdb(tmp_path, 3, 2, 2)
+    cfgp = tmp_path / "run.toml"
+    cfgp.write_text("[sharding]\nchains = 8\ndomain = 1\n")
+    logp = tmp_path / "cal.jsonl"
+    assert cli.main(["calibrate", path, "--synthetic", "--sampler", "hmc",
+                     "--samples", "4", "--warmup", "1", "--chains", "8",
+                     "--device", "cpu", "--config", str(cfgp),
+                     "--log-json", str(logp)]) == 0
+    assert "mesh chains=8 x domain=1 on 8 cpu" in capsys.readouterr().out
+    rec = json.loads(open(logp).read().splitlines()[0])
+    assert rec["mesh"] is not None and "chains=8" in rec["mesh"]
+    assert rec["n_devices"] == torch.cuda.device_count()
+    assert rec["rhat"] is not None
+    st = rec["solve_stats"]
+    assert st["forward_solves"] == st["adjoint_solves"] > 0
+
+
+@pytest.mark.parametrize("toml,chains", [("chains = 8", "3"),
+                                         ("chains = 2\ndomain = 2", "3")])
+def test_cli_calibrate_refuses_indivisible_chains(tmp_path, capsys, toml,
+                                                  chains):
+    """tests/test_aux.py:273-285: chains the mesh's rows do not divide exit
+    with code 2 and the reference's message."""
+    path, _ = _stdb(tmp_path, 3, 2, 2)
+    cfgp = tmp_path / "run.toml"
+    cfgp.write_text(f"[sharding]\n{toml}\n")
+    assert cli.main(["calibrate", path, "--synthetic", "--sampler", "hmc",
+                     "--samples", "2", "--warmup", "2", "--chains", chains,
+                     "--device", "cpu", "--config", str(cfgp)]) == 2
+    assert "ERROR: chains=3 not divisible by the chains mesh axis" in \
+        capsys.readouterr().out
+
+
+@pytest.mark.parametrize("sampler", ["nuts", "smc"])
+def test_cli_calibrate_on_a_cpu_mesh(tmp_path, capsys, monkeypatch,
+                                     sampler):
+    """NUTS and SMC placed on a 2 x 1 CPU mesh through the CLI, short (2 + 2
+    draws; SMC 1 Metropolis step, at most 2 stages): exit code 0, the mesh
+    line, the mesh in the record."""
+    from stan_tpu_torch.infer import nuts, smc
+
+    monkeypatch.setattr(nuts, "run_nuts", _short(nuts, "run_nuts",
+                                                 max_depth=3))
+    monkeypatch.setattr(smc, "run_smc", _short(smc, "run_smc", n_mcmc=1,
+                                               max_stages=2))
+    path, _ = _stdb(tmp_path, 3, 2, 2)
+    cfgp = tmp_path / "run.toml"
+    cfgp.write_text("[sharding]\nchains = 2\n")
+    logp = tmp_path / "cal.jsonl"
+    assert cli.main(["calibrate", path, "--synthetic", "--sampler", sampler,
+                     "--chains", "2", "--warmup", "2", "--samples", "2",
+                     "--device", "cpu", "--config", str(cfgp),
+                     "--log-json", str(logp)]) == 0
+    assert "mesh chains=2 x domain=1 on 2 cpu" in capsys.readouterr().out
+    rec = json.loads(open(logp).read().splitlines()[0])
+    assert rec["sampler"] == sampler and "chains=2" in rec["mesh"]
+    assert rec["draws"] == (4 if sampler == "nuts" else 256)
+
+
 def _reference_cli_log_prior(prob):
     """The SMC prior of the reference's CLI (stan_tpu/cli.py:256-260),
     verbatim, per particle [3] -> scalar in JAX."""

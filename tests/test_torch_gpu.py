@@ -486,3 +486,82 @@ def test_sharded_solves_across_cards():
     res = solve_linear_statics(m, device="cuda", n_domain=n, store=False)
     assert res.operator == f"sharded-stencilx{n}" and res.n_domain == n
     assert res.converged and res.true_residual <= 1e-6
+
+
+def _placed_problems(mesh):
+    """make_problem on hex_beam(4, 3, 3) in float64 on `mesh`, and the same
+    problem on cuda:0 without a mesh."""
+    from stan_tpu_torch.infer import calibrate
+
+    m = meshgen.hex_beam(4, 3, 3)
+    nodes = np.arange(m.nnode - 12, m.nnode)
+    obs = (np.repeat(nodes, 3), np.tile([0, 1, 2], 12),
+           np.full(36, -1e-4), 1e-5)
+    kw = dict(dtype=torch.float64, cg_tol=1e-12)
+    return (calibrate.make_problem(m, *obs, mesh=mesh, **kw),
+            calibrate.make_problem(m, *obs, device="cuda", **kw))
+
+
+def _placed_vs_unplaced(mesh):
+    from stan_tpu_torch.infer import hmc
+
+    placed, unplaced = _placed_problems(mesh)
+    thetas = torch.as_tensor(np.array([np.log(190000.0), 0.28, 0.0])
+                             + np.random.default_rng(6).normal(
+                                 0.0, 0.05, (4, 3)), device="cuda")
+    got = [lgb(thetas) for lgb in (
+        mesh.by_rows(hmc.guarded_logp_grad_b(placed.log_posterior)),
+        hmc.guarded_logp_grad_b(unplaced.log_posterior))]
+    for a, b in zip(*got):
+        assert a.device == b.device == thetas.device
+        assert float((a - b).abs().max()) <= 1e-10 * float(b.abs().max())
+    assert placed.fwd.stats.forward_solves == 4
+    return placed
+
+
+def test_placed_posterior_on_cuda_matches_unplaced():
+    """make_problem(mesh=) on [cuda:0] * 2: one forward, each row's chains
+    solved as one batch on the card (theta_sweep_batched), the log
+    posterior and gradient within 1e-10 of the unplaced problem's."""
+    _need_cuda()
+    before = stencil.theta_batched_launches
+    placed = _placed_vs_unplaced(_mesh("cuda:0", 2, 1))
+    assert placed.row_fwds == ()
+    assert stencil.theta_batched_launches > before
+
+
+def test_placed_posterior_across_cards():
+    """make_problem(mesh=) over two cards: a forward on each, one
+    SolveStats, row 1's chains solved on cuda:1. Skips on a one-card
+    host."""
+    _need_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards: one forward per card")
+    from stan_tpu_torch.parallel import distributed
+
+    placed = _placed_vs_unplaced(distributed.device_mesh(2, 1))
+    (other,) = placed.row_fwds
+    assert other.device == torch.device("cuda", 1)
+    assert other.stats is placed.fwd.stats
+
+
+def test_cli_calibrate_refuses_a_mesh_beyond_the_cards(tmp_path, capsys):
+    """A [sharding] mesh that needs more cards than are visible exits with
+    code 2 and the ERROR line (chains = 2 on a one-card host); it is never
+    repeated on cuda:0."""
+    _need_cuda()
+    pytest.importorskip("google.protobuf")
+    from stan_tpu_torch import cli
+    from stan_tpu_torch.io import stdb
+
+    path = str(tmp_path / "beam.STdb")
+    stdb.write(meshgen.hex_beam(3, 2, 2), path)
+    cfg = tmp_path / "run.toml"
+    n = torch.cuda.device_count() + 1
+    cfg.write_text(f"[sharding]\nchains = {n}\n")
+    assert cli.main(["calibrate", path, "--synthetic", "--sampler", "hmc",
+                     "--chains", str(n), "--warmup", "1", "--samples", "2",
+                     "--config", str(cfg), "--device", "cuda"]) == 2
+    text = capsys.readouterr().out
+    assert f"ERROR: [sharding] mesh {n}x1 needs {n} devices" in text
+    assert "POSTERIOR" not in text

@@ -210,7 +210,7 @@ def test_short_fem_calibration():
     assert res.unconverged_forward == st["forward_unconverged"]
 
 
-def test_cli_calibrate_synthetic(tmp_path, capsys):
+def test_cli_calibrate_synthetic(tmp_path, capsys, monkeypatch):
     from stan_tpu.io import stdb
 
     path = str(tmp_path / "beam.STdb")
@@ -221,9 +221,15 @@ def test_cli_calibrate_synthetic(tmp_path, capsys):
     text = capsys.readouterr().out
     assert "POSTERIOR" in text and "0 unconverged" in text
     assert "at cg_tol 1e-06" in text
-    # Every sampler is ported; a [sharding] device mesh is not.
+    # A [sharding] device mesh places the chains: with --device cpu, over
+    # two CPU slots (tests/test_aux.py:250-270); 2 leapfrog steps.
+    monkeypatch.setattr(hmc, "run_hmc", functools.partial(hmc.run_hmc,
+                                                          n_leapfrog=2))
     cfg = tmp_path / "run.toml"
     cfg.write_text("[sharding]\nchains = 2\n")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli.main(["calibrate", path, "--synthetic", "--config", str(cfg),
-                  "--device", "cpu"])
+    assert cli.main(["calibrate", path, "--synthetic", "--sampler", "hmc",
+                     "--chains", "2", "--warmup", "2", "--samples", "2",
+                     "--config", str(cfg), "--device", "cpu"]) == 0
+    text = capsys.readouterr().out
+    assert "mesh chains=2 x domain=1 on 2 cpu device(s)" in text
+    assert "POSTERIOR" in text
