@@ -118,7 +118,22 @@ Phases, each of which raises on failure:
      (max_depth 4, 2 + 2) and run_smc(mesh=) (32 particles, 2 stages) in
      float32: finite; each run's theta_sweep_batched launches at least the
      batched loop iterations summed over the rows, and counted by chains
-     per launch.
+     per launch;
+ 23. several processes: two workers (this script with a hidden worker
+     mode, each at most PROC_TIMEOUT seconds, loading the kernels phase 2
+     built) join over torch.distributed, NCCL with a card each when there
+     are two or more cards, else gloo with both on cuda:0 (said which).
+     Each worker has three devices; they run the 72-plane beam's float32
+     x-slab CG on 1 x 4 (two slabs each, the halo between slabs 1 and 2
+     across the processes: the iterations and u of phase 19's one-process
+     run, each rank's stencil_sweep launches at its flag pairs at least the
+     iterations, ms per iteration and the transport's share), the sharded
+     general operator (ring x4, all-gather x3; phase 20's iterations and
+     u to 1e-10), placed float64 HMC on 2 x 1 (8 chains per rank; the
+     samples of one process's 2 x 1 run bit for bit, of phase 22's
+     unplaced run to rtol 1e-10, the solve counts summed over the ranks),
+     and one float32 16-chain gradient of the 32^3 calibration on 2 x 3
+     (one row per rank) against phase 21's one-process gradient.
      No sharded phase calls a plain *_reference sweep on a CUDA tensor.
 
 --kernels runs phases 1-5 only (build, every kernel against its plain
@@ -136,8 +151,8 @@ Two measurements run only when asked for:
              launches per iteration; before the ADVI phase, three one-step
              ADVI fits timed in turn and one under torch.profiler (device
              time by kernel, host time by operator); the sharded
-             apply's halo padding (sharded_stencil.halo_pad) timed against
-             the reference's form (concatenate, then pad);
+             apply's halo padding (sharded_stencil.halo_pad_rows) timed
+             against the reference's form (concatenate, then pad);
   --cli      `python -m stan_tpu_torch.cli calibrate --synthetic --sampler
              hmc --device cuda` on an STdb of the 32^3 beam (needs
              protobuf), at the CLI's default tolerance and at 1e-8 (a
@@ -164,8 +179,10 @@ package; the banded solver is float64 host LAPACK in both. So is the
 sharded general operator (phase 20); the sharded stencil phases (18, 19,
 21) run stencil_sweep and theta_sweep_batched on x-slabs with their face
 flags, and phase 22 runs theta_sweep_batched on each row's block of
-chains. One process drives every device of a mesh; with one card the mesh
-repeats cuda:0, so no copy crosses cards there.
+chains. In phases 18-22 one process drives every device of a mesh; with one
+card the mesh repeats cuda:0, so no copy crosses cards there. In phase 23
+each of two processes drives its own blocks and the blocks' exchanges
+cross between the processes.
 """
 
 from __future__ import annotations
@@ -175,6 +192,7 @@ import copy
 import dataclasses
 import itertools
 import json
+import pathlib
 import subprocess
 import sys
 import time
@@ -237,6 +255,18 @@ PLACE_ROWS = 4
 PLACE_WARMUP, PLACE_SAMPLES, PLACE_LEAPFROG = 2, 2, 2
 PLACE_NUTS_DEPTH, PLACE_SMC_STAGES = 4, 2
 PLACE_RTOL, PLACE_ATOL = 1e-4, 1e-5
+# Several processes (phase 23): two workers, each with three devices (its
+# own card under NCCL, cuda:0 under gloo on a one-card host); each waits at
+# most PROC_TIMEOUT seconds, and so does every collective. Their answers
+# against the one-process runs of phases 19-22: the stencil CG's u to
+# PROC_U_GAP of max|u| (the design predicts 0), the general CG's to
+# DIRECT_GAP's 1e-10 (float64), the placed float64 HMC's samples to
+# PROC_RTOL (with PROC_ATOL in θ's units) of the unplaced run, the sharded
+# forward's gradient to SHARD_FWD_RTOL.
+PROC_TIMEOUT = 120.0
+PROC_U_GAP, PROC_GENERAL_GAP = 1e-6, 1e-10
+PROC_RTOL, PROC_ATOL = 1e-10, 1e-10
+PROC_ROWS = 2
 
 
 # The six tetrahedra of a HEX8 around its corner-0 to corner-6 diagonal, in
@@ -1189,8 +1219,8 @@ def plain_sweeps_refused():
 
 
 def cat_pad(masks, us):
-    """The reference's form of sharded_stencil.halo_pad (masked slab, the
-    neighbours' planes concatenated, then the y/z pad), for timing."""
+    """The reference's form of sharded_stencil.halo_pad_rows (masked slab,
+    the neighbours' planes concatenated, then the y/z pad), for timing."""
     import torch.nn.functional as F
 
     um = [m * u for m, u in zip(masks, us)]
@@ -1205,9 +1235,11 @@ def cat_pad(masks, us):
     return out
 
 
-def sharded_stencil_phases(card, profile) -> int:
+def sharded_stencil_phases(card, profile, refs=None) -> int:
     """Phases 18-19 on hex_beam(*SHARD_BEAM) over SHARD_DOMAIN domains;
-    returns the stencil_sweep launches of phase 19's sharded solves."""
+    returns the stencil_sweep launches of phase 19's sharded solves. refs
+    (a dict) gets the sharded solve's u, iterations and host-clock ms per
+    iteration, phase 23's one-process answer."""
     from stan_tpu_torch.analysis.linear import solve_linear_statics
     from stan_tpu_torch.core import meshgen
     from stan_tpu_torch.fem import stencil, structured
@@ -1275,6 +1307,9 @@ def sharded_stencil_phases(card, profile) -> int:
     require(rel["sharded"] <= 2 * rel["single"],
             f"sharded u's float64 residual {rel['sharded']} vs the single "
             f"device's {rel['single']}")
+    if refs is not None:
+        refs["stencil"] = (shard.u.cpu().numpy(), shard.iters,
+                           per_it["sharded"])
 
     reset_launches()
     res = ss.sharded_stencil_pcg(mesh, op, f, tol=1e-6)
@@ -1313,12 +1348,13 @@ def sharded_stencil_phases(card, profile) -> int:
                    card)
         masks = list(sop.free_mask.tensor_split(SHARD_DOMAIN, dim=1))
         us = list(f.tensor_split(SHARD_DOMAIN, dim=1))
-        pads = (time_ms(lambda: ss.halo_pad(masks, us), 50),
-                time_ms(lambda: cat_pad(masks, us), 50),
-                time_ms(lambda: ss.halo_pad(masks, us), 50),
-                time_ms(lambda: cat_pad(masks, us), 50))
-        same = all(torch.equal(a, b) for a, b in zip(ss.halo_pad(masks, us),
-                                                     cat_pad(masks, us)))
+        def halo_pad():
+            return ss.halo_pad_rows(mesh, [masks], [us])[0]
+
+        pads = (time_ms(halo_pad, 50), time_ms(lambda: cat_pad(masks, us), 50),
+                time_ms(halo_pad, 50), time_ms(lambda: cat_pad(masks, us), 50))
+        same = all(torch.equal(a, b)
+                   for a, b in zip(halo_pad(), cat_pad(masks, us)))
         print(f"[{card}] halo padding of {SHARD_DOMAIN} slabs (CUDA events, "
               f"in turns): into padded buffers {pads[0]:.4f} / "
               f"{pads[2]:.4f} ms, concatenate then pad {pads[1]:.4f} / "
@@ -1326,10 +1362,11 @@ def sharded_stencil_phases(card, profile) -> int:
     return launches
 
 
-def sharded_general_phase(card) -> None:
+def sharded_general_phase(card, refs=None) -> None:
     """Phase 20: the sharded general operator on hex_beam(*BAND_BEAM), each
     (domains, ring) of SHARD_GENERAL, float64 CG to DIRECT_CG_TOL against
-    the single-device general operator's."""
+    the single-device general operator's. refs (a dict) gets each run's u,
+    iterations and ms per iteration, phase 23's one-process answers."""
     from stan_tpu_torch.core import meshgen
     from stan_tpu_torch.fem.operator import build_operator
     from stan_tpu_torch.parallel import sharded
@@ -1370,11 +1407,17 @@ def sharded_general_phase(card) -> None:
               f"max|u - u_single| / max|u| = {gap:.3e}")
         require(res.converged and gap <= DIRECT_GAP,
                 f"sharded general x{ndev}: gap {gap}")
+        if refs is not None:
+            refs["general", ndev] = (res.u.cpu().numpy(), res.iters,
+                                     run_s / res.iters * 1e3)
 
 
-def sharded_calibration_phase(cal_model, obs, theta0, card) -> int:
+def sharded_calibration_phase(cal_model, obs, theta0, card, refs=None
+                              ) -> int:
     """Phase 21: the sharded calibration forward on a SHARD_MESH mesh;
-    returns the theta_sweep_batched launches of its HMC run."""
+    returns the theta_sweep_batched launches of its HMC run. refs (a dict)
+    gets its 16 θ and the one-process float32 value and gradient there,
+    phase 23's one-process answer."""
     from stan_tpu_torch.fem import stencil
     from stan_tpu_torch.infer import calibrate, hmc
 
@@ -1409,8 +1452,11 @@ def sharded_calibration_phase(cal_model, obs, theta0, card) -> int:
     lgbs = {"sharded": probs.logp_grad_b(),
             "unsharded": hmc.guarded_logp_grad_b(prob1.log_posterior)}
     secs = {"sharded": [], "unsharded": []}
-    for name in ("unsharded", "sharded"):
-        lgbs[name](th)  # the first call of each pays its set-up
+    # The first call of each pays its set-up.
+    first = {name: [t.cpu().numpy() for t in lgbs[name](th)]
+             for name in ("unsharded", "sharded")}
+    if refs is not None:
+        refs["forward"] = (theta, first["sharded"])
     for name in ("unsharded", "sharded", "sharded", "unsharded"):
         secs[name].append(wall(lambda: lgbs[name](th)))
     print(f"[{card}] one float32 {CHAINS}-chain gradient at {G}^3 (host "
@@ -1488,10 +1534,12 @@ def _placed_launches(label, st, seen, card) -> int:
     return batched
 
 
-def chain_placement_phase(cal_model, obs, theta0, card) -> int:
+def chain_placement_phase(cal_model, obs, theta0, card, refs=None) -> int:
     """Phase 22: the 32^3 calibration's chains placed over a PLACE_ROWS x 1
     mesh through make_problem(mesh=) and run_hmc / run_nuts / run_smc
-    (mesh=); returns the theta_sweep_batched launches of its runs."""
+    (mesh=); returns the theta_sweep_batched launches of its runs. refs (a
+    dict) gets the unplaced float64 HMC run, phase 23's one-process
+    answer."""
     from stan_tpu_torch.infer import calibrate, hmc, nuts, smc
 
     mesh = domain_mesh(PLACE_ROWS, 1, card)
@@ -1534,6 +1582,8 @@ def chain_placement_phase(cal_model, obs, theta0, card) -> int:
     require(a.samples.shape == b.samples.shape == (CHAINS, PLACE_SAMPLES, 3)
             and np.isfinite(a.samples).all(), "placed HMC not finite")
     require(gap <= 1.0, f"placed HMC off the unplaced run: {gap}")
+    if refs is not None:
+        refs["hmc"] = b
 
     probs = {kind: problem(kind, cg_tol=1e-6) for kind in kinds}
     lgbs = {kind: hmc.guarded_logp_grad_b(probs[kind].log_posterior)
@@ -1587,6 +1637,342 @@ def chain_placement_phase(cal_model, obs, theta0, card) -> int:
     require(np.isfinite(res.particles).all()
             and np.isfinite(res.log_evidence), "placed SMC not finite")
     return launches
+
+@contextlib.contextmanager
+def transport_clock():
+    """Within: the seconds spent in the transport between processes,
+    DeviceMesh.exchange (halo planes, neighbour blocks) and
+    distributed.all_sum (dots, joins), each call timed on the host clock
+    from a synchronised card to its end."""
+    from stan_tpu_torch.parallel import distributed
+
+    spent = {"exchange": 0.0, "all_sum": 0.0}
+    inner = {"exchange": distributed.DeviceMesh.exchange,
+             "all_sum": distributed.all_sum}
+
+    def timed(name):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner[name](*args, **kw)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            return out
+        return call
+
+    distributed.DeviceMesh.exchange = timed("exchange")
+    distributed.all_sum = timed("all_sum")
+    try:
+        yield spent
+    finally:
+        distributed.DeviceMesh.exchange = inner["exchange"]
+        distributed.all_sum = inner["all_sum"]
+
+
+def process_worker(rank: int, folder: str, backend: str) -> None:
+    """One of phase 23's two workers: joins the other over a file in
+    `folder`, loads the kernels the parent built (compiling nothing), runs
+    the sharded solve, the sharded general operator, placed HMC and the
+    sharded forward on its blocks, and writes its answers and counts to
+    `folder`. Prints no result line."""
+    from stan_tpu_torch import _build
+    from stan_tpu_torch.core import meshgen
+    from stan_tpu_torch.fem import stencil
+    from stan_tpu_torch.infer import calibrate, hmc
+    from stan_tpu_torch.parallel import distributed, sharded
+    from stan_tpu_torch.parallel import sharded_stencil as ss
+
+    folder = pathlib.Path(folder)
+    built = [_build.library_path(src) for src in _build.sources()]
+    require(all(p.exists() for p in built),
+            f"worker {rank}: the parent built no {built}")
+    for src in _build.sources():
+        _build.library(src.stem)
+    dev = f"cuda:{rank}" if backend == "nccl" else "cuda:0"
+    distributed.initialize(f"file://{folder / 'rendezvous'}", 2, rank,
+                           backend=backend, local_devices=[dev] * 3,
+                           timeout=PROC_TIMEOUT)
+    g = distributed.devices()  # g[0:3] on process 0, g[3:6] on process 1
+    given = np.load(folder / "inputs.npz")
+    obs = (given["obs_nodes"], given["obs_dirs"], given["y"],
+           float(given["sigma"]))
+    out, report = {}, {"rank": rank}
+
+    # The transport's floor: all_sum of 4 floats on the card (staged) and
+    # on the host, 200 calls each, nothing else between them.
+    report["all_sum_us"] = {}
+    for where in ("cuda", "cpu"):
+        t = torch.zeros(4, device=dev if where == "cuda" else "cpu")
+        distributed.all_sum(t)
+        t0 = time.perf_counter()
+        for _ in range(200):
+            distributed.all_sum(t)
+        report["all_sum_us"][where] = (time.perf_counter() - t0) / 200 * 1e6
+
+    # The 72-plane beam on 1 x 4, two slabs per process: the halo between
+    # slabs 1 and 2 crosses the processes.
+    mesh = distributed.device_mesh(1, SHARD_DOMAIN,
+                                   devices=[g[0], g[1], g[3], g[4]])
+    model = meshgen.hex_beam(*SHARD_BEAM)
+    t0 = time.perf_counter()
+    op = ss.build_sharded_stencil_operator(model, SHARD_DOMAIN,
+                                           dtype=torch.float32,
+                                           device=mesh.home)
+    f = torch.as_tensor(model.load_vector(), dtype=torch.float32,
+                        device=mesh.home).reshape(
+        *op.free_mask.shape[1:], 3).permute(3, 0, 1, 2).contiguous()
+    report["stencil_setup_s"] = time.perf_counter() - t0
+    reset_launches()
+    res = ss.sharded_stencil_pcg(mesh, op, f, tol=1e-6)
+    torch.cuda.synchronize()
+    report["stencil_flags"] = {f"{k[1]}{k[2]}": n for k, n in
+                               stencil.flag_launches.items()
+                               if k[0] == "stencil_sweep"}
+    out["stencil_u"], report["stencil_iters"] = res.u.cpu().numpy(), res.iters
+    report["stencil_launches"] = stencil.launches
+    # Then one solve timed, and one with the transport's calls timed (each
+    # from a synchronised card, which adds syncs of its own).
+    t0 = time.perf_counter()
+    ss.sharded_stencil_pcg(mesh, op, f, tol=1e-6)
+    torch.cuda.synchronize()
+    report["stencil_ms_per_it"] = (time.perf_counter() - t0) / res.iters * 1e3
+    with transport_clock() as spent:
+        t0 = time.perf_counter()
+        ss.sharded_stencil_pcg(mesh, op, f, tol=1e-6)
+        torch.cuda.synchronize()
+        report["stencil_clocked_ms_per_it"] = ((time.perf_counter() - t0)
+                                               / res.iters * 1e3)
+    report["stencil_transport_ms_per_it"] = {
+        k: v / res.iters * 1e3 for k, v in spent.items()}
+    del op, f, res
+
+    # The sharded general operator on the banded beam: the ring on 1 x 4
+    # (two blocks per process), the all-gather on 1 x 3 (two and one).
+    band = meshgen.hex_beam(*BAND_BEAM)
+    args = (band.coords, band.conn, band.elem_d_matrices(),
+            band.fix_mask(), band.formulation())
+    for ndev, ring in SHARD_GENERAL:
+        mesh = distributed.device_mesh(1, ndev, devices=[g[0], g[1], g[3],
+                                                         g[4]][:ndev])
+        gop, part = sharded.build_sharded_operator(
+            *args, ndev, dtype=torch.float64, prefer_ring=ring,
+            device=mesh.home)
+        fp = torch.as_tensor(sharded.shard_rhs(part, band.load_vector()),
+                             dtype=torch.float64, device=mesh.home)
+        with transport_clock() as spent:
+            t0 = time.perf_counter()
+            res = sharded.sharded_pcg(mesh, gop, fp, tol=DIRECT_CG_TOL)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        out[f"general{ndev}_u"] = res.u.cpu().numpy()
+        report[f"general{ndev}"] = {
+            "iters": res.iters, "ms_per_it": run_s / res.iters * 1e3,
+            "transport_ms_per_it": {k: v / res.iters * 1e3
+                                    for k, v in spent.items()}}
+
+    # The 32^3 calibration's chains on 2 x 1, row r on process r: float64
+    # HMC as phase 22's unplaced run (same θ0, seed and lengths).
+    cal_model = meshgen.hex_beam(G, G, G)
+    mesh = distributed.device_mesh(PROC_ROWS, 1, devices=[g[0], g[3]])
+    prob = calibrate.make_problem(cal_model, *obs, mesh=mesh,
+                                  dtype=torch.float64, cg_tol=1e-10)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = hmc.run_hmc(prob.log_posterior,
+                      torch.as_tensor(given["theta0"], device=mesh.home), 31,
+                      n_samples=PLACE_SAMPLES, n_warmup=PLACE_WARMUP,
+                      n_leapfrog=PLACE_LEAPFROG, init_step=0.02,
+                      solve_stats=prob.fwd.stats, mesh=mesh)
+    torch.cuda.synchronize()
+    st = prob.fwd.stats
+    report["hmc"] = {
+        "seconds": time.perf_counter() - t0, "grad_evals": res.grad_evals,
+        "solve_stats": res.solve_stats,
+        "local_loop_iters": st.forward_loop_iters + st.adjoint_loop_iters,
+        "theta_sweep_batched": stencil.theta_batched_launches}
+    out["hmc_samples"] = res.samples
+    del prob, res
+
+    # The chains x domain forward on 2 x 3, one row per process: one
+    # float32 16-chain value and gradient at phase 21's θ.
+    mesh = distributed.device_mesh(*SHARD_MESH, devices=g)
+    probs = calibrate.make_sharded_problem(cal_model, mesh, *obs,
+                                           cg_tol=1e-6)
+    th = torch.as_tensor(given["theta_fwd"], device=mesh.home)
+    reset_launches()
+    t0 = time.perf_counter()
+    value, grad = probs.logp_grad_b()(th)
+    torch.cuda.synchronize()
+    report["forward"] = {"seconds": time.perf_counter() - t0,
+                         "theta_sweep_batched":
+                             stencil.theta_batched_launches}
+    out["forward_value"], out["forward_grad"] = (value.cpu().numpy(),
+                                                 grad.cpu().numpy())
+    np.savez(folder / f"out{rank}.npz", **out)
+    (folder / f"report{rank}.json").write_text(json.dumps(report))
+    torch.distributed.destroy_process_group()
+
+
+def processes_phase(card, refs, cal_model, obs, theta0) -> tuple:
+    """Phase 23: two worker processes (process_worker) over NCCL with one
+    card each when there are two or more cards, else over gloo on cuda:0,
+    against the one-process answers of phases 19-22 (refs) and the
+    one-process run of placed HMC on a PROC_ROWS x 1 mesh, the workers'
+    shape; returns the (stencil_sweep, theta_sweep_batched) launches of
+    the workers and of that run."""
+    import tempfile
+
+    from stan_tpu_torch.fem import stencil
+    from stan_tpu_torch.infer import calibrate, hmc
+
+    mesh = domain_mesh(PROC_ROWS, 1, card)
+    prob = calibrate.make_problem(cal_model, *obs, mesh=mesh,
+                                  dtype=torch.float64, cg_tol=1e-10)
+    reset_launches()
+    t0 = time.perf_counter()
+    one = hmc.run_hmc(prob.log_posterior, theta0, 31, n_samples=PLACE_SAMPLES,
+                      n_warmup=PLACE_WARMUP, n_leapfrog=PLACE_LEAPFROG,
+                      init_step=0.02, solve_stats=prob.fwd.stats, mesh=mesh)
+    torch.cuda.synchronize()
+    one_batched = stencil.theta_batched_launches
+    print(f"[{card}] placed HMC float64 on {PROC_ROWS} x 1 in one process: "
+          f"{time.perf_counter() - t0:.2f} s, {one.grad_evals} gradients; "
+          f"theta_sweep_batched {one_batched}")
+    del prob
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 2 else "gloo"
+    print(f"[{card}] phase 23: two processes over {backend} "
+          f"({cards} card(s) visible: "
+          f"{'one card per rank' if backend == 'nccl' else 'both ranks on cuda:0, every CUDA tensor staged through pinned host memory'})")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = pathlib.Path(tmp)
+        theta_fwd, _ = refs["forward"]
+        np.savez(folder / "inputs.npz", obs_nodes=obs[0], obs_dirs=obs[1],
+                 y=obs[2], sigma=obs[3], theta0=theta0.cpu().numpy(),
+                 theta_fwd=theta_fwd)
+        procs = [subprocess.Popen(
+            [sys.executable, __file__, "--process-worker", str(rank), tmp,
+             backend], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for rank in range(2)]
+        texts = [None, None]
+        try:
+            for rank, p in enumerate(procs):
+                left = PROC_TIMEOUT - (time.perf_counter() - t_phase)
+                texts[rank] = p.communicate(timeout=max(left, 1.0))[0]
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for rank, (p, text) in enumerate(zip(procs, texts)):
+            require(text is not None and p.returncode == 0,
+                    f"phase 23 worker {rank}: exit code {p.returncode} "
+                    f"after {time.perf_counter() - t_phase:.1f} s\n"
+                    f"{(text or '')[-6000:]}")
+        reports = [json.loads((folder / f"report{r}.json").read_text())
+                   for r in range(2)]
+        outs = [dict(np.load(folder / f"out{r}.npz")) for r in range(2)]
+    workers_s = time.perf_counter() - t_phase
+
+    u1, iters1, ms1 = refs["stencil"]
+    scale = float(np.abs(u1).max())
+    for rep, out in zip(reports, outs):
+        r = rep["rank"]
+        gap = float(np.abs(out["stencil_u"] - u1).max()) / scale
+        tr = rep["stencil_transport_ms_per_it"]
+        print(f"[{card}] rank {r}: all_sum of 4 floats, 200 calls: "
+              f"{rep['all_sum_us']['cuda']:.1f} µs on the card, "
+              f"{rep['all_sum_us']['cpu']:.1f} µs on the host")
+        print(f"[{card}] rank {r}: sharded stencil CG x{SHARD_DOMAIN} over 2 "
+              f"processes {rep['stencil_iters']} iterations (one process "
+              f"{iters1}), max|u - u_one| / max|u| = {gap:.3e}; ms per "
+              f"iteration {rep['stencil_ms_per_it']:.4f} (one process "
+              f"{ms1[0]:.4f} / {ms1[1]:.4f}); with the transport clocked "
+              f"{rep['stencil_clocked_ms_per_it']:.4f}, of which "
+              f"{tr['exchange']:.4f} exchange + {tr['all_sum']:.4f} "
+              f"all_sum; set-up "
+              f"{rep['stencil_setup_s']:.2f} s; stencil_sweep launches "
+              f"{rep['stencil_launches']} by flags {rep['stencil_flags']}")
+        require(rep["stencil_iters"] == iters1,
+                f"rank {r}: {rep['stencil_iters']} iterations vs {iters1}")
+        require(gap <= PROC_U_GAP, f"rank {r}: stencil u gap {gap}")
+        mine = ("10", "00") if r == 0 else ("00", "01")
+        for flags in mine:
+            require(rep["stencil_flags"].get(flags, 0) >= iters1,
+                    f"rank {r}: flags {flags} launched "
+                    f"{rep['stencil_flags'].get(flags, 0)} < {iters1}")
+        for ndev, ring in SHARD_GENERAL:
+            u_ref, it_ref, ms_ref = refs["general", ndev]
+            got = rep[f"general{ndev}"]
+            gap = _max_gap(out[f"general{ndev}_u"], u_ref)
+            tr = got["transport_ms_per_it"]
+            print(f"[{card}] rank {r}: sharded general x{ndev} "
+                  f"({'ring' if ring else 'all-gather'}) float64 over 2 "
+                  f"processes {got['iters']} iterations (one process "
+                  f"{it_ref}), gap {gap:.3e}; ms per iteration with the "
+                  f"transport clocked {got['ms_per_it']:.4f} (one process, "
+                  f"unclocked, {ms_ref:.4f}), of which "
+                  f"{tr['exchange']:.4f} exchange + {tr['all_sum']:.4f} "
+                  f"all_sum")
+            require(got["iters"] == it_ref and gap <= PROC_GENERAL_GAP,
+                    f"rank {r}: general x{ndev} {got['iters']} iterations "
+                    f"vs {it_ref}, gap {gap}")
+
+        b = refs["hmc"]
+        h = rep["hmc"]
+        diff = np.abs(out["hmc_samples"] - b.samples)
+        gap = float(np.max(diff / (PROC_ATOL + PROC_RTOL
+                                   * np.abs(b.samples))))
+        same = float(np.abs(out["hmc_samples"] - one.samples).max())
+        per_chain = {k: (h["solve_stats"][k], one.solve_stats[k],
+                         b.solve_stats[k])
+                     for k in b.solve_stats if "loop" not in k}
+        print(f"[{card}] rank {r}: placed HMC float64 on {PROC_ROWS} x 1 "
+              f"over 2 processes ({CHAINS // PROC_ROWS} chains per rank): "
+              f"{h['seconds']:.2f} s, {h['grad_evals']} gradients; max "
+              f"|a - b| vs one process's {PROC_ROWS} x 1 run {same:.3e}, vs "
+              f"the unplaced run {float(diff.max()):.3e} ({gap:.3e} of the "
+              f"tolerance); per-chain counts summed over the ranks / one "
+              f"process {PROC_ROWS} x 1 / unplaced {per_chain}; "
+              f"theta_sweep_batched {h['theta_sweep_batched']} for "
+              f"{h['local_loop_iters']} batched loop iterations of this rank")
+        require(same == 0.0 and h["grad_evals"] == one.grad_evals,
+                f"rank {r}: placed HMC off one process's: {same}")
+        require(gap <= 1.0, f"rank {r}: placed HMC off the unplaced run")
+        # Equal to one process's run of the same shape; against the
+        # unplaced run's batch of 16 a chain's CG may stop an iteration
+        # apart (its dots round in another order), but never solve or
+        # fail to converge apart.
+        require(all(a == o and (a == c or "iters" in k)
+                    for k, (a, o, c) in per_chain.items()),
+                f"rank {r}: summed solve counts {per_chain}")
+        require(h["theta_sweep_batched"] >= h["local_loop_iters"] > 0,
+                f"rank {r}: {h['theta_sweep_batched']} batched launches < "
+                f"{h['local_loop_iters']} loop iterations")
+
+        _, (v_one, g_one) = refs["forward"]
+        gap_v = float(np.max(np.abs(out["forward_value"] - v_one)
+                             / np.abs(v_one)))
+        gap_g = _max_gap(out["forward_grad"], g_one)
+        fw = rep["forward"]
+        print(f"[{card}] rank {r}: sharded forward {SHARD_MESH[0]} x "
+              f"{SHARD_MESH[1]} over 2 processes, one float32 {CHAINS}-chain "
+              f"gradient {fw['seconds']:.3f} s (set-up included); gap to one "
+              f"process: value {gap_v:.3e}, gradient {gap_g:.3e}; "
+              f"theta_sweep_batched {fw['theta_sweep_batched']}")
+        require(np.isfinite(out["forward_grad"]).all()
+                and gap_v <= SHARD_FWD_RTOL and gap_g <= SHARD_FWD_RTOL,
+                f"rank {r}: sharded forward off one process: {gap_v}, "
+                f"{gap_g}")
+    print(f"[{card}] phase 23: {workers_s:.2f} s for both workers (start, "
+          f"build and runs), {time.perf_counter() - t_phase:.2f} s in all")
+    return (sum(rep["stencil_launches"] for rep in reports),
+            one_batched + sum(rep["hmc"]["theta_sweep_batched"]
+                              + rep["forward"]["theta_sweep_batched"]
+                              for rep in reports))
 
 
 def cli_sharding(card) -> None:
@@ -1759,6 +2145,13 @@ def print_kernels(errs, theta_errs, batched_errs, facts, launches) -> None:
 def main() -> int:
     import argparse
 
+    if sys.argv[1:2] == ["--process-worker"]:  # phase 23's workers
+        if not torch.cuda.is_available():
+            return 1
+        rank, folder, backend = sys.argv[2:5]
+        with plain_sweeps_refused():
+            process_worker(int(rank), folder, backend)
+        return 0
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="profile the 70^3 CG loop and one "
@@ -2112,14 +2505,21 @@ def main() -> int:
     two_material_phase(theta0, card)
     # -- the domain-sharded paths: x-slab stencil apply and CG, the general
     # sharded operator, the chains x domain calibration forward -----------
+    obs = (obs_nodes, obs_dirs, y, sigma)
+    refs = {}
     with plain_sweeps_refused():
-        launches += sharded_stencil_phases(card, args.profile)
-        sharded_general_phase(card)
-        batched_launches += sharded_calibration_phase(
-            cal_model, (obs_nodes, obs_dirs, y, sigma), theta0, card)
+        launches += sharded_stencil_phases(card, args.profile, refs)
+        sharded_general_phase(card, refs)
+        batched_launches += sharded_calibration_phase(cal_model, obs, theta0,
+                                                      card, refs)
         # -- chains placed over a device mesh -----------------------------
-        batched_launches += chain_placement_phase(
-            cal_model, (obs_nodes, obs_dirs, y, sigma), theta0, card)
+        batched_launches += chain_placement_phase(cal_model, obs, theta0,
+                                                  card, refs)
+        # -- several processes --------------------------------------------
+        more, more_batched = processes_phase(card, refs, cal_model, obs,
+                                             theta0)
+        launches += more
+        batched_launches += more_batched
     if args.cli:
         cli_calibration(card)
         cli_nuts_export(card)

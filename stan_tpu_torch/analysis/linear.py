@@ -17,7 +17,12 @@ The domain width: on CUDA, n_domain is clamped to the visible cards, and
 None means all of them for a model of AUTO_SHARD_MIN_NNODE nodes or more
 (one card otherwise), as the reference clamps to its devices. On the CPU an
 explicit n_domain is honoured with that many CPU slabs (one process drives
-them all) and None means 1.
+them all) and None means 1. After distributed.initialize() with several
+processes the same rule counts the global devices, and the sharded solve's
+mesh is device_mesh over them, as the reference's is over jax.devices():
+every process runs the solve, each on its own slabs, and gets the whole u,
+which it certifies on its own device (the same work on each, and the same
+answer).
 
 The direct solvers (Cholesky, LU) dispatch on size as the reference does:
 up to 6000 DOF the masked K is assembled dense and factored on the device
@@ -123,9 +128,11 @@ AUTO_SHARD_MIN_NNODE = 20_000
 
 def _domain_width(model, device, n_domain) -> int:
     """The domain axis's width (module docstring)."""
-    if device.type != "cuda":
+    several = distributed.process_count() > 1
+    if device.type != "cuda" and not several:
         return max(1, n_domain or 1)
-    ndev = torch.cuda.device_count()
+    ndev = (len(distributed.devices()) if several
+            else torch.cuda.device_count())
     if n_domain is None:
         n_domain = ndev if (ndev > 1 and model.nnode >= AUTO_SHARD_MIN_NNODE
                             ) else 1
@@ -133,9 +140,15 @@ def _domain_width(model, device, n_domain) -> int:
 
 
 def _domain_mesh(device, n: int) -> distributed.DeviceMesh:
-    """One row of n devices: the first n cards, or n CPU slabs."""
-    if device.type == "cuda":
-        return distributed.device_mesh(1, n)
+    """One row of n devices: the first n global devices over several
+    processes, else the first n cards, or n CPU slabs."""
+    if device.type == "cuda" or distributed.process_count() > 1:
+        mesh = distributed.device_mesh(1, n)
+        if mesh.home.type != device.type:
+            raise ValueError(f"the processes' devices are "
+                             f"{mesh.home.type}, the solve asks for "
+                             f"{device}")
+        return mesh
     return distributed.device_mesh(1, n, devices=[device] * n)
 
 

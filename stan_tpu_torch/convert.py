@@ -161,12 +161,12 @@ def sharded_stencil_forward_from_numpy(free_mask, d_lam, d_mu, f0, tables_lam,
                                        cg_maxiter, mesh: DeviceMesh, *,
                                        dtype=None
                                        ) -> ShardedStencilForwardProblem:
-    """ShardedStencilForwardProblem on `mesh` (whole grids on its first
+    """ShardedStencilForwardProblem on `mesh` (whole grids on its home
     device) from stan_tpu.infer.forward.ShardedStencilForwardProblem's
     fields: the four grids as numpy arrays, the unit tables as {sig:
     {offset: 3x3 float64}} (stan_tpu.fem.stencil._thaw_tables of ft_lam /
     ft_mu)."""
-    dev = mesh.devices[0, 0]
+    dev = mesh.home
     grids = [_float(a, dtype, dev).contiguous()
              for a in (free_mask, d_lam, d_mu, f0)]
     return ShardedStencilForwardProblem(

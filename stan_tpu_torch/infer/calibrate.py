@@ -16,11 +16,12 @@ Likelihood: y ~ Normal(u_obs(θ), sigma_obs), independent per observed DOF.
 On a device mesh, two forms:
 
   * make_problem(mesh=) places chains: one forward per distinct first
-    device of the mesh's rows, with the same routing, all counting into
-    one SolveStats. log_posterior, log_likelihood and log_prior solve θ on
+    device of the mesh's rows (of this process's rows when the mesh spans
+    several processes), with the same routing, all counting into one
+    SolveStats. log_posterior, log_likelihood and log_prior solve θ on
     θ's device, so a block of chains that run_hmc, run_nuts or run_smc
-    (mesh=) hands to row r solves on row r's device. prob.fwd is the first
-    device's forward.
+    (mesh=) hands to row r solves on row r's device. prob.fwd is the
+    forward on the mesh's home device.
   * The chains x domain problem (make_sharded_problem, obs_grids,
     ShardedCalibrationProblem) has the same posterior with the forward
     solve also cut into x-slabs over the domain axis
@@ -258,15 +259,16 @@ def make_problem(
 
     With `mesh`, a forward on each distinct first device of its rows
     (forward.build_row_forwards; the module docstring); `device` defaults
-    to the mesh's first device, and another one is refused (ValueError)."""
+    to the mesh's home device (its first device of this process), and
+    another one is refused (ValueError)."""
     kw = dict(dtype=dtype, cg_tol=cg_tol, prefer_stencil=prefer_stencil)
     if mesh is None:
         fwds = [fwd_mod.build_forward(model, device=device or "cuda", **kw)]
     else:
-        home = mesh.devices[0, 0]
+        home = mesh.home
         if device is not None and canonical(device) != home:
-            raise ValueError(f"device {device!r} is not the mesh's first "
-                             f"device {home}")
+            raise ValueError(f"device {device!r} is not the mesh's home, "
+                             f"this process's first device {home}")
         fwds = fwd_mod.build_row_forwards(model, mesh, **kw)
     fwd = fwds[0]
     obs_idx = np.stack([np.asarray(obs_nodes, np.int64),

@@ -47,8 +47,9 @@ from stan_tpu_torch.fem import kernels, stencil, structured
 from stan_tpu_torch.fem.operator import (StiffnessOperator, build_operator,
                                          default_dtype)
 from stan_tpu_torch.infer import hmc
+from stan_tpu_torch.parallel import distributed
 from stan_tpu_torch.parallel.distributed import DeviceMesh, Slabs
-from stan_tpu_torch.parallel.sharded_stencil import halo_pad
+from stan_tpu_torch.parallel.sharded_stencil import halo_pad_rows
 from stan_tpu_torch.solvers import cg as cg_mod
 
 
@@ -122,6 +123,20 @@ class SolveStats:
     def since(self, before: dict) -> dict:
         """The counts added since ``before`` (an earlier ``as_dict()``)."""
         return {k: v - before[k] for k, v in self.as_dict().items()}
+
+
+class SummedSolveStats(SolveStats):
+    """The SolveStats of a problem placed on a mesh that spans several
+    processes: each process counts the solves of its own rows, and
+    ``as_dict`` reports the counts summed over the processes (a
+    collective: every process reports at the same points), so the
+    per-chain counts are those of one process."""
+
+    def as_dict(self) -> dict:
+        counts = super().as_dict()
+        summed = distributed.all_sum(torch.tensor(list(counts.values()),
+                                                  dtype=torch.int64))
+        return dict(zip(counts, summed.tolist()))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -409,7 +424,7 @@ class ShardedStencilForwardProblem:
     sync_axes gives it):
 
       * the slab matvec is M K(λ, μ) (M u) + (I - M) u with the halo planes
-        of sharded_stencil.halo_pad and one theta sweep per slab
+        of sharded_stencil.halo_pad_rows and one theta sweep per slab
         (stencil.theta_apply_padded, flags (slab == first, slab == last)):
         what the reference's slab_theta_apply computes, on the kernel of
         csrc/theta_sweep.cu on the card;
@@ -419,8 +434,11 @@ class ShardedStencilForwardProblem:
         over its own nodes with the haloed u, summed over the domain (the
         reference's psum); the prior is added once.
 
-    The grids (free_mask, d_lam, d_mu, f0) are whole, on the mesh's first
-    device; their slabs are placed on the mesh once.
+    The grids (free_mask, d_lam, d_mu, f0) are whole, on the mesh's home
+    device; their slabs are placed on the mesh once. Over several processes
+    each solves its own blocks, and every process gets the whole value and
+    gradient (Slabs.dot), so SolveStats counts every chain on every
+    process.
     """
 
     tables_lam: dict  # {sig: {offset: 3x3}} unit-λ signature tables
@@ -465,24 +483,30 @@ class ShardedStencilForwardProblem:
         if v.shape[0] % rows:
             raise ValueError(f"{v.shape[0]} chains do not divide over {rows} "
                              f"mesh rows")
-        return Slabs(self.mesh.per_chain(v.reshape(-1, 1, 1, 1, 1)), 2, True)
+        return self.mesh.split(v.reshape(-1, 1, 1, 1, 1), None, chains=True)
 
     def _sweeps(self, coef: torch.Tensor, u: Slabs, masked: bool) -> Slabs:
         """Per chain coef[c, 0]·K_λ(M u) + coef[c, 1]·K_μ(M u) on every slab
-        (coef [C, 2]); with `masked`, the masked SPD action M K (M u) + (I -
-        M) u."""
+        this process owns (coef [C, 2]); with `masked`, the masked SPD
+        action M K (M u) + (I - M) u."""
         coefs = self.mesh.per_chain(coef.contiguous())
+        masks_rows = self._slabs["m"].parts
+        ups = halo_pad_rows(self.mesh, masks_rows, u.parts)
         out = []
-        for masks, t2s, cs, us in zip(self._slabs["m"].parts,
-                                      self._slabs["tables2"], coefs, u.parts):
+        for masks, t2s, cs, uprow, us in zip(masks_rows,
+                                             self._slabs["tables2"], coefs,
+                                             ups, u.parts):
             n = len(us)
             row = []
-            for s, (m, t2, c, up, u_s) in enumerate(zip(
-                    masks, t2s, cs, halo_pad(masks, us), us)):
+            for s, (m, t2, c, up, u_s) in enumerate(zip(masks, t2s, cs,
+                                                        uprow, us)):
+                if up is None:
+                    row.append(None)
+                    continue
                 ku = stencil.theta_apply_padded(t2, c, up, s == 0, s == n - 1)
                 row.append(m * ku + (1.0 - m) * u_s if masked else ku)
             out.append(row)
-        return Slabs(out, u.axis, u.chains)
+        return u.like(out)
 
     def _pcg(self, lam, mu, rhs: Slabs) -> cg_mod.CGResult:
         coef = torch.stack([lam, mu], dim=-1)
@@ -616,11 +640,11 @@ def build_stencil_forward(model: FEModel, *, dtype=None, device="cuda",
 def build_sharded_stencil_forward(
         model: FEModel, mesh: DeviceMesh, *, dtype=None,
         cg_tol: float = 1.0e-8, cg_maxiter: int = 0) -> Optional[ShardedStencilForwardProblem]:
-    """The stencil forward on `mesh` (whole grids on its first device), or
+    """The stencil forward on `mesh` (whole grids on its home device), or
     None if the model does not qualify: a structured HEX8 grid whose NNX the
     domain axis divides (the slab contract of parallel/sharded_stencil)."""
     pieces = _stencil_forward_pieces(model, dtype or default_dtype(),
-                                     mesh.devices[0, 0])
+                                     mesh.home)
     if pieces is None:
         return None
     base, tables_lam, tables_mu, d_lam, d_mu, f0 = pieces
@@ -699,13 +723,15 @@ def build_forward(model: FEModel, *, dtype=None, device="cuda",
 
 def build_row_forwards(model: FEModel, mesh: DeviceMesh, **kw) -> list:
     """build_forward(model, **kw) on each distinct first device of the
-    mesh's rows (mesh.devices[r, 0], in row order: one forward for a mesh
-    of ["cpu"] * n or [cuda:0] * n), each routed alike; the later ones
-    share the first one's SolveStats."""
-    devices = list(dict.fromkeys(mesh.row_devices()))
+    mesh's rows that this process owns (mesh.devices[r, 0], in row order:
+    one forward for a mesh of ["cpu"] * n or [cuda:0] * n), each routed
+    alike; they share one SolveStats, summed over the processes when the
+    mesh spans several (SummedSolveStats)."""
+    devices = list(dict.fromkeys(mesh.devices[r, 0]
+                                 for r in mesh.local_rows()))
     fwds = [build_forward(model, device=d, **kw) for d in devices]
-    return [fwds[0]] + [dataclasses.replace(f, stats=fwds[0].stats)
-                        for f in fwds[1:]]
+    stats = SummedSolveStats() if mesh.spmd else fwds[0].stats
+    return [dataclasses.replace(f, stats=stats) for f in fwds]
 
 
 def solve_theta(fwd, theta: torch.Tensor) -> torch.Tensor:

@@ -259,12 +259,14 @@ def run_chains(
     evaluation (grad_evals). The state stays on theta0's device and in its
     dtype.
 
-    ``mesh``: a DeviceMesh whose first device holds theta0. Each call of
-    the target is cut into one block of chains per row of ``chain_axis``
-    (DeviceMesh.by_rows; a chain count the rows do not divide is refused
-    with ValueError), evaluated on the row's first device, and joined
-    back in row order; the state, the generators and the draws stay on
-    the first device, so a resumed run and a short final chunk keep the
+    ``mesh``: a DeviceMesh whose home device (its first device of this
+    process) holds theta0. Each call of the target is cut into one block
+    of chains per row of ``chain_axis`` (DeviceMesh.by_rows; a chain count
+    the rows do not divide is refused with ValueError), evaluated on the
+    row's first device, and joined back in row order (over several
+    processes each evaluates its own rows and every process gets the
+    whole, so every process draws the same); the state, the generators and the draws stay on
+    the home device, so a resumed run and a short final chunk keep the
     placement and the draws are those of the run without a mesh. The
     domain axis is not used: the reference replicates a row's chains over
     its domain devices, the port evaluates them once, on the row's first
@@ -285,10 +287,10 @@ def run_chains(
     dev = theta0.device
     n_chains, dim = theta0.shape
     if mesh is not None:
-        if dev != mesh.devices[0, 0]:
-            raise ValueError(f"theta0 lies on {dev}, the mesh's first device "
-                             f"is {mesh.devices[0, 0]}: the sampler's state "
-                             f"stays there")
+        if dev != mesh.home:
+            raise ValueError(f"theta0 lies on {dev}, the mesh's home (this "
+                             f"process's first device of it) is "
+                             f"{mesh.home}: the sampler's state stays there")
         logp_grad_b = mesh.by_rows(logp_grad_b, chain_axis)
     mass_flags = warmup_window_flags(n_warmup)
     stats0 = solve_stats.as_dict() if solve_stats is not None else None

@@ -19,8 +19,8 @@ against the device-computed log-likelihoods, as in the reference.
 With ``mesh=`` the particles are placed over the mesh's chains axis as
 hmc.run_chains places chains: `log_prior` and `log_likelihood` are
 evaluated row by row (DeviceMesh.by_rows), row r's block of particles on
-the row's first device, and the values come back to the mesh's first
-device. The weights, the ESS bisection, the systematic resampling, the
+the row's first device, and the values come back to the mesh's home
+device (over several processes, to every process's). The weights, the ESS bisection, the systematic resampling, the
 walk scale and every draw stay global there, as the reference's psum and
 gather make them, so placement changes no draw.
 
@@ -115,16 +115,17 @@ def run_smc(
     particle_axis: str = "chains",
 ) -> SMCResult:
     """Adaptive-tempering SMC from prior to prior*likelihood, on `device`
-    (default: the mesh's first device, else "cuda"; sample_prior(gen, n)
+    (default: the mesh's home device, else "cuda"; sample_prior(gen, n)
     draws there from the generator it is given). With `mesh`, the
     particles are placed over its `particle_axis` (module docstring); a
     particle count its rows do not divide is refused, and so is a
-    `device` other than the mesh's first (ValueError)."""
+    `device` other than the mesh's home (ValueError)."""
     if mesh is not None:
-        home = mesh.devices[0, 0]
+        home = mesh.home
         if device is not None and canonical(resolve_device(device)) != home:
-            raise ValueError(f"device {device!r} is not the mesh's first "
-                             f"device {home}, where the particles stay")
+            raise ValueError(f"device {device!r} is not the mesh's home, "
+                             f"this process's first device {home}, where "
+                             f"the particles stay")
         device = home
         log_prior = mesh.by_rows(log_prior, particle_axis)
         log_likelihood = mesh.by_rows(log_likelihood, particle_axis)

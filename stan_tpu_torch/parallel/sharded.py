@@ -18,7 +18,11 @@ modes, chosen when the operator is built:
 The device code is plain torch, as it is XLA in the reference: the
 element forces of fem/kernels.internal_force, and each node's sum a gather
 through the transposed incidence map plus a sum over a small axis (no
-index_add_, so a solve gives the same bits on every run).
+index_add_, so a solve gives the same bits on every run). Over several
+processes each computes the forces of its own blocks, and every block it
+needs from another process, or sends to one, goes through the mesh's
+transport (DeviceMesh.exchange), two rounds per apply; every sum is taken
+in device order, so the bits are those of one process.
 
 Array layout: node arrays [nnode_pad, 3] with nnode_pad = ndev * block;
 element arrays [ndev * epb, ...], device d's slice d*epb:(d+1)*epb.
@@ -38,7 +42,7 @@ from stan_tpu_torch.fem import kernels
 from stan_tpu_torch.fem.elements import ElementFormulation
 from stan_tpu_torch.fem.operator import (_element_diag, default_dtype,
                                          node_incidence, resolve_device)
-from stan_tpu_torch.parallel.distributed import DeviceMesh, Slabs
+from stan_tpu_torch.parallel.distributed import DeviceMesh, Move, Slabs
 from stan_tpu_torch.parallel.partition import (Partition,
                                                partition as make_partition)
 from stan_tpu_torch.solvers import cg as cg_mod
@@ -89,8 +93,9 @@ class _Block:
 
 
 def _place(mesh: DeviceMesh, op: ShardedOperator):
-    """(the devices' blocks, free mask and diagonal as Slabs) on a one-row
-    mesh whose domain axis has one device per block."""
+    """(the devices' blocks, None where another process owns one; free mask
+    and diagonal as Slabs) on a one-row mesh whose domain axis has one
+    device per block."""
     devs = mesh.devices[0]
     ndev = op.nnode_pad // op.block
     if mesh.shape["chains"] != 1 or len(devs) != ndev:
@@ -103,7 +108,8 @@ def _place(mesh: DeviceMesh, op: ShardedOperator):
     for d, dev in enumerate(devs):
         e = slice(d * epb, (d + 1) * epb)
         blocks.append(_Block(conn[e].to(dev), inc[d].to(dev), op.dN[e].to(dev),
-                             op.detJw[e].to(dev), op.D[e].to(dev)))
+                             op.detJw[e].to(dev), op.D[e].to(dev))
+                      if mesh.is_local(0, d) else None)
     return blocks, mesh.split(op.free_mask, 0), mesh.split(op.diag, 0)
 
 
@@ -116,40 +122,67 @@ def _element_forces(blk: _Block, u_src: torch.Tensor) -> torch.Tensor:
     return padded[blk.inc].sum(dim=1)
 
 
-def _gather_scatter_apply(blocks, um: list, b: int) -> list:
+def _rows(t: Optional[torch.Tensor], lo: int, hi: int):
+    return None if t is None else t[lo:hi]
+
+
+def _empty(like: Optional[torch.Tensor], rows: int):
+    return None if like is None else like.new_empty((rows, 3))
+
+
+def _gather_scatter_apply(mesh, blocks, um: list, b: int) -> list:
     """all-gather mode: every device's forces over the whole padded vector,
     then block d summed over the devices in order, on device d."""
-    partial = [_element_forces(blk, torch.cat([u.to(own.device)
-                                               for u in um]))
-               for blk, own in zip(blocks, um)]
+    n = len(um)
+    whole = [_empty(own, n * b) for own in um]
+    mesh.exchange([Move((0, e), (0, d), um[e], _rows(whole[d], e * b,
+                                                     (e + 1) * b))
+                   for d in range(n) for e in range(n)])
+    partial = [None if blk is None else _element_forces(blk, w)
+               for blk, w in zip(blocks, whole)]
+    terms = [[_empty(own, b) for _ in range(n)] for own in um]
+    mesh.exchange([Move((0, e), (0, d), _rows(partial[e], d * b,
+                                              (d + 1) * b), terms[d][e])
+                   for d in range(n) for e in range(n)])
     out = []
-    for d, own in enumerate(um):
+    for row in terms:
         acc = None
-        for p in partial:
-            term = p[d * b:(d + 1) * b].to(own.device)
+        for term in row:
             acc = term if acc is None else acc + term
         out.append(acc)
     return out
 
 
-def _ring_apply(blocks, um: list, b: int) -> list:
+def _ring_apply(mesh, blocks, um: list, b: int) -> list:
     """ring mode: the neighbours' blocks in, the neighbours' thirds of the
     forces back."""
     n = len(um)
-    f_ext = [_element_forces(blk, torch.cat([um[(d - 1) % n].to(own.device),
-                                             own,
-                                             um[(d + 1) % n].to(own.device)]))
-             for d, (blk, own) in enumerate(zip(blocks, um))]
-    return [f_ext[d][b:2 * b] + f_ext[(d - 1) % n][2 * b:].to(own.device)
-            + f_ext[(d + 1) % n][:b].to(own.device)
-            for d, own in enumerate(um)]
+    ext = [_empty(own, 3 * b) for own in um]
+    for x, own in zip(ext, um):
+        if x is not None:
+            x[b:2 * b] = own
+    mesh.exchange([mv for d in range(n) for mv in (
+        Move((0, (d - 1) % n), (0, d), um[(d - 1) % n], _rows(ext[d], 0, b)),
+        Move((0, (d + 1) % n), (0, d), um[(d + 1) % n],
+             _rows(ext[d], 2 * b, 3 * b)))])
+    f_ext = [None if blk is None else _element_forces(blk, x)
+             for blk, x in zip(blocks, ext)]
+    left = [_empty(own, b) for own in um]
+    right = [_empty(own, b) for own in um]
+    mesh.exchange([mv for d in range(n) for mv in (
+        Move((0, (d - 1) % n), (0, d), _rows(f_ext[(d - 1) % n], 2 * b,
+                                             3 * b), left[d]),
+        Move((0, (d + 1) % n), (0, d), _rows(f_ext[(d + 1) % n], 0, b),
+             right[d]))])
+    return [None if f is None else f[b:2 * b] + lt + rt
+            for f, lt, rt in zip(f_ext, left, right)]
 
 
 def _local_apply(op: ShardedOperator, blocks, m: Slabs, u: Slabs) -> Slabs:
     """Masked SpMV M K (M u) + (I - M) u over the devices."""
     um = (m * u).parts[0]
     exchange = _ring_apply if op.ring else _gather_scatter_apply
-    f = Slabs([exchange(blocks, um, op.block)], 0)
+    f = u.like([exchange(u.mesh, blocks, um, op.block)])
     return m * f + (1.0 - m) * u
 
 

@@ -6,19 +6,21 @@ channel-first grid [3, NNX, NNY, NNZ] on axis 1 gives each device of the
 mesh's domain axis a contiguous x-slab, and the halo a 27-point stencil
 needs is one boundary plane from each x-neighbour:
 
-  * halo_pad writes each slab's masked u into a buffer that already has
-    its ghost layer, then copies each neighbour's masked boundary plane
-    into the x ghost planes (a copy to the slab's device; the global edges
-    keep zeros, the stencil's ghost convention, as the reference's
-    non-wrapping ppermute gives them);
+  * halo_pad_rows writes each slab's masked u into a buffer that already
+    has its ghost layer, then copies each neighbour's masked boundary plane
+    into the x ghost planes (a copy to the slab's device, or a transfer
+    from another process; the global edges keep zeros, the stencil's ghost
+    convention, as the reference's non-wrapping ppermute gives them);
   * stencil_sweep (csrc/stencil_sweep.cu on the card) runs on each slab
     with flags (slab == first, slab == last): the global low / high x
     faces belong to the edge slabs, and the y/z faces to every slab.
 
 CG's dot products reduce over the slabs (distributed.Slabs.dot). NNX must
 divide evenly by the domain size; callers fall back to parallel/sharded.py's
-general operator otherwise. One process drives every device
-(distributed.py).
+general operator otherwise. Over several processes each sweeps only its own
+slabs, and a boundary plane whose neighbour another process owns crosses
+through the mesh's transport (DeviceMesh.exchange): one round per apply,
+the reference's two ppermutes.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 
 from stan_tpu_torch.core.model import FEModel
 from stan_tpu_torch.fem import stencil
-from stan_tpu_torch.parallel.distributed import DeviceMesh, Slabs
+from stan_tpu_torch.parallel.distributed import DeviceMesh, Move, Slabs
 from stan_tpu_torch.solvers import cg as cg_mod
 
 
@@ -49,20 +51,35 @@ class ShardedStencilOperator:
     ndev: int
 
 
-def halo_pad(masks: list, us: list) -> list:
-    """One chain row's slabs with their ghost layers: for slab s of u (u[s]
+def halo_pad_rows(mesh: DeviceMesh, masks: list, us: list) -> list:
+    """Every row's slabs of a mesh ([r][s] blocks, None where another
+    process owns one) with their ghost layers: for slab s of u (u[s]
     [..., 3, SX, NNY, NNZ]), a buffer [..., 3, SX+2, NNY+2, NNZ+2] holding
     masks[s]·u[s] inside zero y/z ghosts, and as x ghost planes the
-    neighbours' masked boundary planes (zeros at the global edges)."""
+    neighbours' masked boundary planes (zeros at the global edges), moved
+    in one exchange round."""
     ups = []
-    for m, u in zip(masks, us):
-        *lead, sx, ny, nz = u.shape
-        up = u.new_zeros((*lead, sx + 2, ny + 2, nz + 2))
-        torch.mul(m, u, out=up[..., 1:-1, 1:-1, 1:-1])
-        ups.append(up)
-    for s in range(1, len(ups)):
-        ups[s][..., 0, 1:-1, 1:-1].copy_(ups[s - 1][..., -2, 1:-1, 1:-1])
-        ups[s - 1][..., -1, 1:-1, 1:-1].copy_(ups[s][..., 1, 1:-1, 1:-1])
+    for mrow, urow in zip(masks, us):
+        row = []
+        for m, u in zip(mrow, urow):
+            if u is None:
+                row.append(None)
+                continue
+            *lead, sx, ny, nz = u.shape
+            up = u.new_zeros((*lead, sx + 2, ny + 2, nz + 2))
+            torch.mul(m, u, out=up[..., 1:-1, 1:-1, 1:-1])
+            row.append(up)
+        ups.append(row)
+
+    def plane(up, x):
+        return None if up is None else up[..., x, 1:-1, 1:-1]
+
+    moves = [mv for r, row in enumerate(ups) for s in range(1, len(row))
+             for mv in (Move((r, s - 1), (r, s), plane(row[s - 1], -2),
+                             plane(row[s], 0)),
+                        Move((r, s), (r, s - 1), plane(row[s], 1),
+                             plane(row[s - 1], -1)))]
+    mesh.exchange(moves)
     return ups
 
 
@@ -85,21 +102,26 @@ def _place(mesh: DeviceMesh, op: ShardedStencilOperator) -> _Placed:
 
 
 def _local_apply(pl: _Placed, u: Slabs) -> Slabs:
-    """Masked K·u, M K (M u) + (I - M) u, on every slab: halo planes, then
-    one stencil_sweep per slab (per chain of a chain-batched u)."""
+    """Masked K·u, M K (M u) + (I - M) u, on every slab this process owns:
+    halo planes, then one stencil_sweep per slab (per chain of a
+    chain-batched u)."""
+    ups = halo_pad_rows(u.mesh, pl.free_mask.parts, u.parts)
     out = []
-    for masks, tables, us in zip(pl.free_mask.parts, pl.table, u.parts):
+    for masks, tables, uprow, us in zip(pl.free_mask.parts, pl.table, ups,
+                                        u.parts):
         n = len(us)
         row = []
-        for s, (m, t, up, u_s) in enumerate(zip(masks, tables,
-                                                halo_pad(masks, us), us)):
+        for s, (m, t, up, u_s) in enumerate(zip(masks, tables, uprow, us)):
+            if up is None:
+                row.append(None)
+                continue
             lo, hi = s == 0, s == n - 1
             f = (stencil.stencil_sweep(up, t, lo, hi) if up.dim() == 4 else
                  torch.stack([stencil.stencil_sweep(c, t, lo, hi)
                               for c in up]))
             row.append(m * f + (1.0 - m) * u_s)
         out.append(row)
-    return Slabs(out, u.axis, u.chains)
+    return u.like(out)
 
 
 def build_sharded_stencil_operator(
@@ -143,7 +165,8 @@ def sharded_stencil_pcg(mesh: DeviceMesh, op: ShardedStencilOperator,
     """Jacobi PCG on the sharded stencil operator over a one-row mesh.
 
     f: [3, NNX, NNY, NNZ] right-hand side in grid layout. Returns the
-    CGResult with u in the same layout, on f's device."""
+    CGResult with u in the same layout, on f's device (the whole of it on
+    every process)."""
     _one_row(mesh)
     pl = _place(mesh, op)
     ndof = int(np.prod(op.free_mask.shape))

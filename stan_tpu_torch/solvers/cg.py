@@ -22,7 +22,12 @@ iterations, residual and flags are those of its own solve.
 ``dot`` is the reduction, as ``axis_name`` is the reference's: a
 domain-sharded solve passes parallel.distributed.Slabs.dot with vectors
 sharded over a device mesh (parallel/sharded_stencil.py,
-parallel/sharded.py), and the recurrence stays this one.
+parallel/sharded.py), and the recurrence stays this one. Over several
+processes every host decision here (the norms read at each iteration, the
+run mask of a batched solve) is taken on each process from dot's values,
+so dot must return the same bits on every process (Slabs.dot does), and
+b.device must be a device of this process (Slabs.device, the mesh's
+home); then every process stops at the same iteration.
 """
 
 from __future__ import annotations

@@ -565,3 +565,68 @@ def test_cli_calibrate_refuses_a_mesh_beyond_the_cards(tmp_path, capsys):
     text = capsys.readouterr().out
     assert f"ERROR: [sharding] mesh {n}x1 needs {n} devices" in text
     assert "POSTERIOR" not in text
+
+
+# Several processes (tests/torch_multiprocess_worker.py): two ranks on the
+# card(s), against the one-process mesh of the same shape, bit for bit.
+_TWO_RANK_SCENARIOS = ["dot", "stencil", "chains", "general"]
+
+
+def _two_ranks_match_one_process(tmp_path, device, backend, one_process):
+    import torch_multiprocess_worker as worker
+
+    worker.spawn(tmp_path, device, backend, _TWO_RANK_SCENARIOS)
+    for name in _TWO_RANK_SCENARIOS:
+        ref = worker.SCENARIOS[name](one_process)
+        for rank in (0, 1):
+            got = worker.load(tmp_path, name, rank)
+            for key, want in ref.items():
+                if key != "describe":
+                    np.testing.assert_array_equal(got[key], want,
+                                                  err_msg=f"{name}.{key}")
+    assert f"{backend})" in str(worker.load(tmp_path, "dot", 0)["describe"])
+
+
+def test_two_ranks_on_one_card_over_gloo(tmp_path):
+    """Two processes on cuda:0 over gloo, every CUDA tensor staged through
+    pinned host memory: the dots, the x-slab stencil CG with the halo
+    across the processes (stencil_sweep per slab), the chains x domain CG
+    and the general ring and all-gather give the bits of one process's
+    [cuda:0] * 4 mesh."""
+    _need_cuda()
+    _two_ranks_match_one_process(tmp_path, "cuda:0", "gloo",
+                                 ["cuda:0"] * 4)
+
+
+def test_two_ranks_over_nccl(tmp_path):
+    """Rank r on cuda:r over NCCL against one process's mesh of the same
+    cards. Skips on a one-card host, where NCCL refuses two ranks on one
+    card (tests/test_torch_multiprocess.py checks the refusal)."""
+    _need_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards: NCCL gives each rank its own")
+    _two_ranks_match_one_process(tmp_path, "cuda:{rank}", "nccl",
+                                 ["cuda:0", "cuda:0", "cuda:1", "cuda:1"])
+
+
+def test_nccl_refuses_two_ranks_on_one_card(tmp_path):
+    """Two ranks that both name cuda:0 under NCCL meet in the rendezvous
+    store (the card's UUID) and both raise before any collective, naming
+    gloo; nothing is joined."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from stan_tpu_torch.parallel import distributed
+
+    _need_cuda()
+    init = f"file://{tmp_path / 'rendezvous'}"
+
+    def rank(r):
+        with pytest.raises(ValueError, match=r"ranks 0 and 1 on one card "
+                           r"\(cuda:0 of rank 0, cuda:0 of rank 1\).*"
+                           r"backend='gloo'"):
+            distributed.initialize(init, 2, r, backend="nccl",
+                                   local_devices=["cuda:0"], timeout=60.0)
+
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(rank, (0, 1)))
+    assert distributed.process_count() == 1 and distributed.backend() is None

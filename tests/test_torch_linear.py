@@ -191,14 +191,16 @@ def test_cli_solve_roundtrip(tmp_path, capsys):
     assert cli.main(["solve", path, "--device", "cpu"]) == 2
 
 
-def test_unported_paths_raise():
-    """Only several processes (item 10c) are refused; the domain-sharded
-    solve (item 10a) and Cholesky, each refused until it was ported, now
-    solve."""
+def test_unported_paths_raise(monkeypatch):
+    """Nothing is refused as unported any more: several processes (item
+    10c) are refused only without an init method; the domain-sharded solve
+    (item 10a) and Cholesky, each refused until it was ported, solve."""
     from stan_tpu_torch.parallel import distributed
 
+    for name in ("MASTER_ADDR", "MASTER_PORT", "RANK"):
+        monkeypatch.delenv(name, raising=False)
     m = meshgen.hex_beam(3, 2, 2)
-    with pytest.raises(NotImplementedError, match="item 10c"):
+    with pytest.raises(ValueError, match="init method"):
         distributed.initialize(num_processes=2)
     res = solve_linear_statics(m, device="cpu", dtype=F64, n_domain=2)
     assert res.operator == "sharded-stencilx2" and res.n_domain == 2

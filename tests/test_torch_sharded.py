@@ -66,10 +66,18 @@ def test_mixed_type_mesh_raises():
         distributed.DeviceMesh([["cpu"], ["cuda:0"]])
 
 
-def test_initialize_is_single_process():
+def test_initialize_is_single_process(monkeypatch):
+    """One process is a no-op (so callers may call it unconditionally);
+    several need an init method, and are refused without one before
+    anything is joined."""
+    for name in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+                 "STAN_TPU_NUM_PROCESSES"):
+        monkeypatch.delenv(name, raising=False)
     distributed.initialize()  # one process: nothing to do
-    with pytest.raises(NotImplementedError, match="item 10c"):
+    assert distributed.process_count() == 1
+    with pytest.raises(ValueError, match="init method"):
         distributed.initialize(num_processes=4)
+    assert distributed.process_count() == 1 and distributed.backend() is None
 
 
 def test_slabs_split_gather_and_dot():

@@ -130,7 +130,8 @@ def test_halo_pad_exchanges_masked_planes():
     u = torch.as_tensor(rng.standard_normal((2, 3, 6, 4, 5)))
     m = torch.as_tensor((rng.random((3, 6, 4, 5)) > 0.3).astype(float))
     masks, us = list(m.tensor_split(3, dim=1)), list(u.tensor_split(3, dim=2))
-    ups = ss.halo_pad(masks, us)
+    mesh = distributed.device_mesh(1, 3, devices=["cpu"] * 3)
+    ups = ss.halo_pad_rows(mesh, [masks], [us])[0]
     whole = F.pad(m * u, (1, 1, 1, 1, 1, 1))
     for s, up in enumerate(ups):
         assert up.shape == (2, 3, 4, 6, 7)

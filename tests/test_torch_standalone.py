@@ -13,6 +13,8 @@ import ast
 import json
 import pathlib
 import re
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -31,7 +33,8 @@ from stan_tpu_torch.utils import runlog
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(str(p.relative_to(REPO)) for p in
                     (REPO / "stan_tpu_torch").rglob("*.py")) + [
-                        "chip_smoke.py", "chip_tune.py"]
+                        "chip_smoke.py", "chip_tune.py",
+                        "tests/torch_multiprocess_worker.py"]
 
 
 def _imported_modules(tree):
@@ -225,3 +228,25 @@ def test_runlog_record_equals_reference():
     dumped = [json.dumps(r, default=c) for r, c in
               ((mine, runlog._coerce), (ref, jrunlog._coerce))]
     assert dumped[0] == dumped[1]
+
+
+def test_infer_package_exports_the_reference_names():
+    """stan_tpu_torch.infer re-exports, from the port's own modules, every
+    name stan_tpu/infer/__init__.py does; importing it (in a fresh
+    process) loads no torch._dynamo, whose cost stays at the first use of
+    a torch.optim optimiser."""
+    tree = ast.parse((REPO / "stan_tpu" / "infer" / "__init__.py").read_text())
+    names = sorted(a.asname or a.name for node in ast.walk(tree)
+                   if isinstance(node, ast.ImportFrom) for a in node.names)
+    assert "run_hmc" in names and "CalibrationProblem" in names
+    code = ("import json, sys\nimport stan_tpu_torch.infer as inf\n"
+            f"names = {names!r}\n"
+            "print(json.dumps([[n, getattr(inf, n).__module__] for n in "
+            "names] + ['torch._dynamo' in sys.modules]))")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=REPO, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    *found, dynamo = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert [n for n, _ in found] == names
+    assert all(mod.startswith("stan_tpu_torch.infer.") for _, mod in found)
+    assert dynamo is False
