@@ -134,7 +134,18 @@ Phases, each of which raises on failure:
      unplaced run to rtol 1e-10, the solve counts summed over the ranks),
      and one float32 16-chain gradient of the 32^3 calibration on 2 x 3
      (one row per rank) against phase 21's one-process gradient.
-     No sharded phase calls a plain *_reference sweep on a CUDA tensor.
+     No sharded phase calls a plain *_reference sweep on a CUDA tensor;
+ 24. (run after phase 8) the certified solve: pcg_certified from zero on
+     the 70^3 beam (float32 corrections on the StencilOperator, float64
+     residual on the float64 StencilOperator's apply: stencil_sweep's
+     float and double instantiations), measure=True: converged, float64
+     residual <= 1e-6, the host float64 sweep (apply_numpy on
+     exact_tables) <= 1.2e-6 and within 1e-3 (relative) of it, at least
+     one float32 launch per inner iteration and one float64 launch per
+     cycle; its warm seconds against a plain float32 pcg to 1e-6 and
+     phase 6's base CG and certification; and phase 6's certified u
+     checked by hostops.masked_f64_apply (no kernel) to 1.2e-6. No plain
+     *_reference sweep runs on a CUDA tensor in it.
 
 --kernels runs phases 1-5 only (build, every kernel against its plain
 version, the timings), prints the kernels line with no launch counts (no
@@ -267,6 +278,11 @@ PROC_TIMEOUT = 120.0
 PROC_U_GAP, PROC_GENERAL_GAP = 1e-6, 1e-10
 PROC_RTOL, PROC_ATOL = 1e-10, 1e-10
 PROC_ROWS = 2
+# The certified solve (phase 24): pcg_certified to CERT_TOL from zero on
+# the 70^3 beam; its float64 answer checked by the host float64 sweep to
+# CERT_HOST_TOL (tests/test_df32.py:112), the host and device residuals
+# to CERT_AGREE of each other (both float64).
+CERT_TOL, CERT_HOST_TOL, CERT_AGREE = 1e-6, 1.2e-6, 1e-3
 
 
 # The six tetrahedra of a HEX8 around its corner-0 to corner-6 diagonal, in
@@ -1190,6 +1206,129 @@ def domain_mesh(n_chains: int, n_domain: int, card):
         which = f"cuda:0 repeated {need} times ({cards} card(s) visible)"
     print(f"[{card}] {distributed.describe(mesh)}: {which}")
     return mesh
+
+
+@contextlib.contextmanager
+def sweeps_by_dtype(counts):
+    """Within: stencil_sweep's kernel launches are also counted by dtype
+    into counts (a Counter), from the wrapper's own launch count."""
+    from stan_tpu_torch.fem import stencil
+
+    sweep = stencil.stencil_sweep
+
+    def counted(up, *args):
+        before = stencil.launches
+        out = sweep(up, *args)
+        counts[up.dtype] += stencil.launches - before
+        return out
+
+    stencil.stencil_sweep = counted
+    try:
+        yield
+    finally:
+        stencil.stencil_sweep = sweep
+
+
+def certified_phase(model, lin, timer, op32, card) -> int:
+    """Phase 24: pcg_certified from zero on the 70^3 beam (float32
+    corrections on the float32 StencilOperator, the float64 residual on
+    the float64 StencilOperator's apply: both stencil_sweep), its answer
+    checked by the host float64 twin (apply_numpy on exact_tables), timed
+    against a plain float32 pcg to the same tolerance and beside phase 6's
+    base CG and certification; then phase 6's certified u checked by the
+    same twin (hostops.masked_f64_apply). Returns its stencil_sweep
+    launches."""
+    import collections
+
+    from stan_tpu_torch.fem import hostops, stencil
+    from stan_tpu_torch.solvers import cg
+
+    reset_launches()
+    t_phase = time.perf_counter()
+    ex = stencil.build_stencil_operator(model, dtype=torch.float64,
+                                        device="cuda")
+    require(ex is not None, "70^3 beam refused by build_stencil_operator")
+    loads64 = torch.as_tensor(model.load_vector(), dtype=torch.float64,
+                              device="cuda")
+    b64 = (ex.free_mask * ex.to_grid(loads64)).contiguous()
+    rhs = b64.to(torch.float32)
+    diag = op32.diagonal()
+    ndof = 3 * model.nnode
+    setup_s = time.perf_counter() - t_phase
+
+    def base():
+        return cg.pcg(op32.apply, rhs, diag=diag, tol=CERT_TOL, ndof=ndof)
+
+    base()  # warm, as pcg_certified(measure=True) reports a second run
+    t0 = time.perf_counter()
+    base_res = base()
+    torch.cuda.synchronize()
+    base_s = time.perf_counter() - t0
+
+    by_dtype = collections.Counter()
+    with sweeps_by_dtype(by_dtype):
+        cert = cg.pcg_certified(op32.apply, b64, ex.apply, diag=diag,
+                                tol=CERT_TOL, ndof=ndof, measure=True)
+    f32, f64 = by_dtype[torch.float32], by_dtype[torch.float64]
+
+    # The host twin of the stencil operator: apply_numpy on exact_tables.
+    t0 = time.perf_counter()
+    twin = hostops.masked_f64_apply(model, op32)
+    twin_s = time.perf_counter() - t0
+    b_np = b64.cpu().numpy()
+    bnorm = float(np.linalg.norm(b_np))
+
+    def host_rel(u_grid):
+        return float(np.linalg.norm(b_np - twin(u_grid))) / bnorm
+
+    t0 = time.perf_counter()
+    host = host_rel(cert.u.cpu().numpy())
+    host_s = time.perf_counter() - t0
+    lib = host_rel(op32.to_grid(torch.as_tensor(lin.u_certified)).numpy())
+
+    phases = {r["phase"]: r for r in timer.records}
+    lin_base = next(r for name, r in phases.items()
+                    if name.startswith("Linear solve"))
+    lin_cert = phases["Certify (f64 refinement)"]
+    overhead = max(cert.seconds - base_s, 0.0) / max(base_s, 1e-9)
+    print(f"[{card}] certified: " + json.dumps({
+        "seconds": cert.seconds, "cycles": cert.cycles,
+        "inner_iters": cert.inner_iters,
+        "rel_residual_device_f64": cert.rel_residual,
+        "rel_residual_host_f64_crosscheck": host,
+        "converged": bool(cert.converged),
+        "uncertified_base_seconds": base_s,
+        "uncertified_base_iters": base_res.iters,
+        "overhead_vs_uncertified_base": overhead,
+        "phase6_base_cg_seconds": lin_base["seconds"],
+        "phase6_base_cg_iters": lin_base["iters"],
+        "phase6_certify_seconds": lin_cert["seconds"],
+        "phase6_certify_iters": lin_cert["refine_iters"],
+        "phase6_base_plus_certify_seconds":
+            lin_base["seconds"] + lin_cert["seconds"],
+        "stencil_sweep_f32_launches": f32,
+        "stencil_sweep_f64_launches": f64,
+        "solve_runs": 2}))
+    print(f"[{card}] certified phase: set-up {setup_s:.3f} s, host twin "
+          f"(hostops.masked_f64_apply: exact tables) {twin_s:.3f} s, one "
+          f"host sweep (apply_numpy) {host_s:.3f} s; phase 6's u_certified "
+          f"through the host twin: relative residual {lib:.3e}; "
+          f"{time.perf_counter() - t_phase:.2f} s in all")
+    require(cert.converged, "the certified solve did not converge")
+    require(cert.rel_residual <= CERT_TOL,
+            f"certified residual {cert.rel_residual}")
+    require(host <= CERT_HOST_TOL, f"host cross-check {host}")
+    require(abs(host - cert.rel_residual) <= CERT_AGREE * host,
+            f"host {host} and device {cert.rel_residual} residuals "
+            f"disagree")
+    # measure=True runs the solve twice.
+    require(f32 >= 2 * cert.inner_iters,
+            f"{f32} float32 launches < 2 x {cert.inner_iters} iterations")
+    require(f64 >= 2 * cert.cycles,
+            f"{f64} float64 launches < 2 x {cert.cycles} cycles")
+    require(lib <= CERT_HOST_TOL,
+            f"phase 6's certified u: host float64 residual {lib}")
+    return stencil.launches
 
 
 @contextlib.contextmanager
@@ -2423,6 +2562,10 @@ def main() -> int:
     if args.profile:
         profile_cg(op32.apply, rhs, diag, f"the {N}^3 stencil operator",
                    card)
+
+    # -- the certified solve, and phase 6's answer by the host twin -------
+    with plain_sweeps_refused():
+        launches += certified_phase(model, res, timer, op32, card)
 
     # -- the calibration main path ----------------------------------------
     cal_model = meshgen.hex_beam(G, G, G)

@@ -1,4 +1,4 @@
-# Copied from stan_tpu/core/validate.py, check_model only.
+# Copied unchanged from stan_tpu/core/validate.py.
 """Model validation: validate-and-refuse at ingest.
 
 The reference collects mesh-parse failures into ``Database.Import_Error``
@@ -7,8 +7,8 @@ materials default to the sentinel E = nu = -999 (Material.cs:27-29) and only
 blocks a GUI run on unassigned materials (MainWindow.xaml.cs:474-487); a
 failed linear solve silently leaves zeros in U (SolverFunctions.cs:417-420).
 Per SURVEY.md §5.3 the rebuild refuses bad input up front instead: this
-module checks a loaded FEModel and returns the full list of problems (not
-just the first).
+module checks a loaded FEModel and raises ``ValidationError`` with the full
+list of problems (not just the first).
 """
 
 from __future__ import annotations
@@ -16,6 +16,15 @@ from __future__ import annotations
 from typing import List
 
 import numpy as np
+
+
+class ValidationError(ValueError):
+    """Raised on invalid model input; ``.problems`` lists every finding."""
+
+    def __init__(self, problems: List[str]):
+        self.problems = list(problems)
+        super().__init__(
+            "model validation failed:\n  - " + "\n  - ".join(self.problems))
 
 
 def check_model(model, *, require_loads: bool = True) -> List[str]:
@@ -101,3 +110,9 @@ def check_model(model, *, require_loads: bool = True) -> List[str]:
 
     return problems
 
+
+def validate(model, *, require_loads: bool = True) -> None:
+    """Raise ValidationError listing every problem; no-op when valid."""
+    problems = check_model(model, require_loads=require_loads)
+    if problems:
+        raise ValidationError(problems)

@@ -1,12 +1,26 @@
-# Copied from stan_tpu/fem/hostops.py (_b_matrix_np, element_stiffness_np, d_np only).
-"""Host-side float64 element stiffness and isotropic D (numpy).
+# Copied from stan_tpu/fem/hostops.py (every function; the port reads its
+# operators' tensors through .cpu()).
+"""Host-side float64 operators (numpy).
 
 The port builds the structured grid's unit-Lame element stiffness
-matrices from these, in float64 on the host, before moving them to the
-card.
+matrices from element_stiffness_np and d_np, in float64 on the host,
+before moving them to the card. The rest of this module is the float64
+action of the same assembled K for each operator family, in numpy on the
+host, independent of the device code:
+
+  * general_apply_np: matvec through per-element ke + np.add.at scatter,
+  * stencil_apply_np: the exact float64 signature tables
+    (fem/stencil.exact_tables + apply_numpy),
+  * structured_apply_np: the StructuredOperator slice-gather/scatter path,
+  * masked_f64_apply: the twin of a device operator, by its family.
+
+These are correctness/certification paths, not hot paths: one call costs a
+few host-seconds at 1M DOF.
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import numpy as np
 
@@ -63,3 +77,125 @@ def d_np(lam: float, mu: float) -> np.ndarray:
     out[:3, :3] = D
     out[3:, 3:] = mu * np.eye(3)
     return out
+
+
+def general_apply_np(
+    coords: np.ndarray,
+    conn: np.ndarray,
+    D_e: np.ndarray,
+    form: ElementFormulation,
+    fix_mask: np.ndarray,
+) -> Callable[[np.ndarray], np.ndarray]:
+    """Masked float64 K·u for an arbitrary mesh: u[nnode,3] -> f[nnode,3].
+
+    Same masked-SPD convention as the device operators:
+    f = M K (M u) + (I - M) u. Materializes ke[E, 3nn, 3nn] float64 once
+    (~4.6 KB/element for HEX8) -- callers should bound nelem.
+    """
+    conn = np.asarray(conn)
+    coords = np.asarray(coords, np.float64)
+    ke = element_stiffness_np(coords[conn], D_e, form)  # [E, 3nn, 3nn]
+    free = 1.0 - np.asarray(fix_mask, np.float64)
+    E, nn = conn.shape
+
+    def apply(u: np.ndarray) -> np.ndarray:
+        u = np.asarray(u, np.float64)
+        um = free * u
+        u_e = um[conn].reshape(E, 3 * nn)
+        f_e = np.einsum("eab,eb->ea", ke, u_e).reshape(E, nn, 3)
+        f = np.zeros_like(um)
+        np.add.at(f, conn, f_e)
+        return free * f + (1.0 - free) * u
+
+    return apply
+
+
+def _host(t) -> np.ndarray:
+    """A tensor of a (device) operator as a float64 numpy array."""
+    return t.detach().cpu().numpy().astype(np.float64)
+
+
+def stencil_apply_np(model, sop) -> Callable[[np.ndarray], np.ndarray]:
+    """Masked float64 K·u for a StencilOperator (grid layout [3,nnx,nny,nnz])
+    via the exact float64 signature tables (fem/stencil.exact_tables +
+    apply_numpy)."""
+    from stan_tpu_torch.fem import stencil as stencil_mod
+
+    td = stencil_mod.exact_tables(model)
+    if td is None:
+        raise ValueError("model does not qualify for the stencil operator")
+    tables, deltas = td
+    free = _host(sop.free_mask)
+
+    def apply(u: np.ndarray) -> np.ndarray:
+        u = np.asarray(u, np.float64)
+        um = free * u
+        return (free * stencil_mod.apply_numpy(tables, deltas, um)
+                + (1.0 - free) * u)
+
+    return apply
+
+
+def masked_f64_apply(model, op) -> Callable[[np.ndarray], np.ndarray]:
+    """Float64 host twin of a device operator's masked apply, dispatched on
+    the operator family. Input/output layout follows the operator: grid
+    [3,nnx,nny,nnz] for stencil/structured, flat [nnode,3] for the general
+    operator. Takes and returns numpy arrays, whatever the operator's
+    device."""
+    from stan_tpu_torch.fem.operator import StiffnessOperator
+    from stan_tpu_torch.fem.stencil import StencilOperator
+    from stan_tpu_torch.fem.structured import StructuredOperator
+
+    if isinstance(op, StencilOperator):
+        return stencil_apply_np(model, op)
+    if isinstance(op, StructuredOperator):
+        return structured_apply_np(model, op)
+    if isinstance(op, StiffnessOperator):
+        return general_apply_np(
+            model.coords, model.conn,
+            np.asarray(model.elem_d_matrices(), np.float64),
+            model.formulation(), model.fix_mask())
+    raise TypeError(f"unknown operator family {type(op).__name__}")
+
+
+def structured_apply_np(model, sop) -> Callable[[np.ndarray], np.ndarray]:
+    """Masked float64 K·u for a StructuredOperator, grid layout
+    [3, nnx, nny, nnz]: the slice gather/scatter of
+    fem/structured.StructuredOperator.apply, executed in numpy float64 with
+    the unit-coefficient stiffness tables recomputed in float64 from the
+    model's grid spacing (sop.ke_lam may be float32)."""
+    from stan_tpu_torch.fem import structured as structured_mod
+
+    nx, ny, nz = sop.nelems
+    corners = structured_mod._CORNERS
+    lam_e = _host(sop.lam_e)
+    mu_e = _host(sop.mu_e)
+    free = _host(sop.free_mask)
+    info = structured_mod.detect_structured(model)
+    if info is None:
+        raise ValueError("model is not a structured grid")
+    hx, hy, hz = info["spacing"]
+    corner_xyz = np.asarray(
+        [[dx * hx, dy * hy, dz * hz] for dx, dy, dz in corners], np.float64
+    )[None]
+    ke_lam = element_stiffness_np(corner_xyz, d_np(1.0, 0.0)[None], sop.form)[0]
+    ke_mu = element_stiffness_np(corner_xyz, d_np(0.0, 1.0)[None], sop.form)[0]
+
+    def apply(u: np.ndarray) -> np.ndarray:
+        u = np.asarray(u, np.float64)
+        um = free * u
+        parts = [
+            um[:, ox: ox + nx, oy: oy + ny, oz: oz + nz]
+            for ox, oy, oz in corners
+        ]
+        u_e = np.concatenate(parts, axis=0).reshape(24, -1)
+        f2 = (ke_lam @ u_e).reshape(24, nx, ny, nz) * lam_e[None]
+        f2 = f2 + (ke_mu @ u_e).reshape(24, nx, ny, nz) * mu_e[None]
+        total = np.zeros_like(um)
+        for a, (ox, oy, oz) in enumerate(corners):
+            slab = f2[3 * a: 3 * a + 3]
+            pad = [(0, 0)] + [(o, 1 - o) for o in (ox, oy, oz)]
+            total += np.pad(slab, pad)
+        return free * total + (1.0 - free) * u
+
+    return apply

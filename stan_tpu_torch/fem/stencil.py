@@ -25,6 +25,13 @@ theta_sweep (one grid) and theta_sweep_batched (a [B, ...] batch of chains,
 one launch) compute it in one pass, on the kernel of csrc/theta_sweep.cu,
 with the coefficients read from device memory; theta_sweep_reference is
 their plain version. ThetaSweep makes the sweep differentiable in (λ, μ, u).
+
+exact_tables builds the float64 tables from the float64 element stiffness
+on the host, whatever the operator dtype, and apply_numpy applies them in
+numpy: the host float64 reference for the sweep. The float64
+StencilOperator carries the same tables (to 1e-14) on a device, where the
+sweep's double instantiation gives the float64 residual of the certified
+solve (solvers/cg.pcg_certified).
 """
 
 from __future__ import annotations
@@ -41,7 +48,8 @@ import torch.nn.functional as F
 
 from stan_tpu_torch.core.model import FEModel
 from stan_tpu_torch import _build
-from stan_tpu_torch.fem import structured
+from stan_tpu_torch.fem import hostops, structured
+from stan_tpu_torch.fem.operator import resolve_device
 from stan_tpu_torch.fem.structured import StructuredOperator
 
 _OFFSETS = tuple(itertools.product((-1, 0, 1), repeat=3))
@@ -450,24 +458,96 @@ class StencilOperator:
         return m * self.apply_raw(m * u) + (1.0 - m) * u
 
 
+def _stencil_qualifies(model: FEModel) -> Optional[dict]:
+    """detect_structured's grid info if the model qualifies for the stencil
+    operator, else None: the structured grid, a single isotropic material
+    (tested on the float64 Lame fields, whatever the operator dtype), and
+    at least 3 nodes along every axis (so the L/F/H regions do not
+    overlap). Host only: no device operator is built to answer."""
+    info = structured.detect_structured(model)
+    if info is None or min(info["nelems"]) < 2:
+        return None
+    lam_e, mu_e = structured.lame_fields(model)
+    if not (np.all(lam_e == lam_e[0]) and np.all(mu_e == mu_e[0])):
+        return None
+    return info
+
+
 def build_stencil_operator(model: FEModel, *, dtype=None, device="cuda"
                            ) -> Optional[StencilOperator]:
-    """Build the stencil operator, or None if the model doesn't qualify: it
-    needs the structured grid, a single isotropic material, and at least 3
-    nodes along every axis (so the L/F/H regions do not overlap)."""
-    base = structured.build_structured_operator(model, dtype=dtype,
-                                                device=device)
-    if base is None:
+    """Build the stencil operator, or None if the model doesn't qualify
+    (_stencil_qualifies). In float64 its apply is the masked float64 action
+    on stencil_sweep's double instantiation: the high-precision operator of
+    pcg_certified, with tables equal to exact_tables(model) to 1e-14."""
+    device = resolve_device(device)
+    info = _stencil_qualifies(model)
+    if info is None:
         return None
+    base = structured.build_from_grid(model, info, dtype=dtype, device=device)
     lam = base.lam_e.reshape(-1)
     mu = base.mu_e.reshape(-1)
-    if lam.numel() == 0 or not bool(torch.all(lam == lam[0])
-                                    and torch.all(mu == mu[0])):
-        return None
-    if min(base.node_shape) < 3:
-        return None
     ke = (base.ke_lam.to(torch.float64).cpu().numpy() * float(lam[0])
           + base.ke_mu.to(torch.float64).cpu().numpy() * float(mu[0]))
     tables = signature_tables(ke)
     return StencilOperator(base=base, tables=tables,
                            table=pack_tables(tables, base.dtype, base.device))
+
+
+def exact_tables(model: FEModel):
+    """(tables, deltas) from the float64 element stiffness, whatever the
+    operator dtype, or None when the model does not qualify for the stencil
+    operator. The high-precision operator definition for apply_numpy.
+
+    The tables come from hostops.element_stiffness_np in float64, never
+    from an operator's ke: a float32 operator's ke_lam and ke_mu are
+    rounded, and a residual against tables built from them reads 1e-5 where
+    the exact one reads 1e-12. The qualification is build_stencil_operator's
+    own (_stencil_qualifies), on the host, without a device operator.
+    """
+    info = _stencil_qualifies(model)
+    if info is None:
+        return None
+    lam_e, mu_e = structured.lame_fields(model)
+    hx, hy, hz = info["spacing"]
+    corners = np.array(
+        [[dx * hx, dy * hy, dz * hz] for dx, dy, dz in structured._CORNERS],
+        np.float64)
+    ke = hostops.element_stiffness_np(
+        corners[None], hostops.d_np(float(lam_e[0]), float(mu_e[0]))[None],
+        model.formulation())[0]
+    tables = signature_tables(ke)
+    return tables, delta_tables(tables)
+
+
+def apply_numpy(tables: dict, deltas: dict, u: np.ndarray) -> np.ndarray:
+    """Host float64 K·u on the node grid [3, nnx, nny, nnz]: the interior
+    table over the whole grid, then each boundary signature's delta over
+    its region. The reference for the device sweep, independent of it."""
+    u = np.asarray(u, np.float64)
+    _, NNX, NNY, NNZ = u.shape
+    up = np.pad(u, ((0, 0), (1, 1), (1, 1), (1, 1)))
+
+    def region_apply(table, xs, xlen, ys, ylen, zs, zlen):
+        out = np.zeros((3, xlen, ylen, zlen))
+        for (ox, oy, oz), m in table.items():
+            sub = up[:,
+                     1 + xs + ox:1 + xs + ox + xlen,
+                     1 + ys + oy:1 + ys + oy + ylen,
+                     1 + zs + oz:1 + zs + oz + zlen]
+            out += np.einsum("cd,dxyz->cxyz", np.asarray(m, np.float64), sub)
+        return out
+
+    f = region_apply(tables[_INTERIOR], 0, NNX, 0, NNY, 0, NNZ)
+    x_region = {"L": (0, 1), "H": (NNX - 1, 1), "F": (1, NNX - 2)}
+    y_region = {"L": (0, 1), "H": (NNY - 1, 1), "F": (1, NNY - 2)}
+    z_region = {"L": (0, 1), "H": (NNZ - 1, 1), "F": (1, NNZ - 2)}
+    for sig, dsig in deltas.items():
+        xs, xlen = x_region[sig[0]]
+        ys, ylen = y_region[sig[1]]
+        zs, zlen = z_region[sig[2]]
+        if xlen <= 0 or ylen <= 0 or zlen <= 0:
+            continue
+        f[:, xs:xs + xlen, ys:ys + ylen, zs:zs + zlen] += region_apply(
+            dsig, xs, xlen, ys, ylen, zs, zlen)
+    return f
+

@@ -185,6 +185,19 @@ def detect_structured(model: FEModel) -> Optional[dict]:
     }
 
 
+def lame_fields(model: FEModel) -> tuple:
+    """Per-element Lame constants (lam_e, mu_e), float64 [nelem], from the
+    material records (0 for an element whose material id has no record)."""
+    lam_e = np.zeros(model.nelem)
+    mu_e = np.zeros(model.nelem)
+    for mid, mat in model.materials.items():
+        sel = np.asarray(model.elem_mat) == mid
+        lam_e[sel] = (mat.E * mat.poisson) / (
+            (1 - 2 * mat.poisson) * (1 + mat.poisson))
+        mu_e[sel] = 0.5 * mat.E / (1 + mat.poisson)
+    return lam_e, mu_e
+
+
 def build_structured_operator(model: FEModel, *, dtype=None, device="cuda"
                               ) -> Optional[StructuredOperator]:
     """Build the structured-grid operator, or None if the mesh doesn't
@@ -193,6 +206,14 @@ def build_structured_operator(model: FEModel, *, dtype=None, device="cuda"
     info = detect_structured(model)
     if info is None:
         return None
+    return build_from_grid(model, info, dtype=dtype, device=dev)
+
+
+def build_from_grid(model: FEModel, info: dict, *, dtype=None,
+                    device="cuda") -> StructuredOperator:
+    """The structured-grid operator of a model whose grid
+    detect_structured(model) has already returned as ``info``."""
+    dev = resolve_device(device)
     dtype = dtype or default_dtype()
     nx, ny, nz = info["nelems"]
     hx, hy, hz = info["spacing"]
@@ -207,14 +228,7 @@ def build_structured_operator(model: FEModel, *, dtype=None, device="cuda"
     ke_mu = hostops.element_stiffness_np(
         corners, hostops.d_np(0.0, 1.0)[None], form)[0]
 
-    lam_e = np.zeros(model.nelem)
-    mu_e = np.zeros(model.nelem)
-    for mid, mat in model.materials.items():
-        sel = np.asarray(model.elem_mat) == mid
-        lam_e[sel] = (mat.E * mat.poisson) / (
-            (1 - 2 * mat.poisson) * (1 + mat.poisson))
-        mu_e[sel] = 0.5 * mat.E / (1 + mat.poisson)
-
+    lam_e, mu_e = lame_fields(model)
     free = 1.0 - np.asarray(model.fix_mask(), dtype=np.float64)
     kw = dict(dtype=dtype, device=dev)
     return StructuredOperator(

@@ -1,4 +1,4 @@
-# Copied from stan_tpu/io/stdb.py, without to_proto and the native fast decode.
+# Copied from stan_tpu/io/stdb.py, without the native fast decode.
 """STdb file IO: the reference's single-file model+results format.
 
 The STdb file is a protobuf-serialized ``Database`` message; the same file is
@@ -34,6 +34,101 @@ from stan_tpu_torch.core.model import (
     PartInfo,
 )
 from stan_tpu_torch.io import stdb_pb2 as pb
+
+
+# ---------------------------------------------------------------------------
+# FEModel -> proto
+# ---------------------------------------------------------------------------
+
+def to_proto(model: FEModel) -> pb.Database:
+    db = pb.Database()
+    nnode, nelem = model.nnode, model.nelem
+    ninc = 0 if model.disp is None else model.disp.shape[0]
+
+    # Element back-references per node (dense index -> list of element IDs).
+    elist: list[list[int]] = [[] for _ in range(nnode)]
+    conn = np.asarray(model.conn)
+    eids = np.asarray(model.elem_ids)
+    for e in range(nelem):
+        for n in conn[e]:
+            elist[int(n)].append(int(eids[e]))
+
+    disp = None if model.disp is None else np.asarray(model.disp)
+    for i in range(nnode):
+        nid = int(model.node_ids[i])
+        n = db.node_lib[nid]
+        n.id = nid
+        n.x, n.y, n.z = (float(v) for v in model.coords[i])
+        n.elist.extend(elist[i])
+        n.dof.extend([3 * i, 3 * i + 1, 3 * i + 2])
+        if disp is not None:
+            n.disp_x.extend(float(v) for v in disp[:, i, 0])
+            n.disp_y.extend(float(v) for v in disp[:, i, 1])
+            n.disp_z.extend(float(v) for v in disp[:, i, 2])
+
+    strain = None if model.strain is None else np.asarray(model.strain)
+    stress = None if model.stress is None else np.asarray(model.stress)
+    node_ids = np.asarray(model.node_ids)
+    for e in range(nelem):
+        eid = int(eids[e])
+        el = db.elem_lib[eid]
+        el.id = eid
+        el.type = model.elem_type[e]
+        el.pid = int(model.elem_pid[e])
+        el.mat_id = 0 if model.elem_mat is None else int(model.elem_mat[e])
+        el.nlist.extend(int(node_ids[n]) for n in conn[e])
+        nn = conn.shape[1]
+        for inc in range(ninc):
+            if strain is not None:
+                el.strain.append(_matrix(strain[inc, e], nn, 6))
+            if stress is not None:
+                el.stress.append(_matrix(stress[inc, e], nn, 6))
+
+    for mid, mat in sorted(model.materials.items()):
+        m = db.mat_lib[mid]
+        m.id = mat.id
+        m.type = mat.type
+        m.name = mat.name
+        m.e = mat.E
+        m.poisson = mat.poisson
+        m.color_id = mat.color_id
+
+    for bid, bc in sorted(model.bcs.items()):
+        b = db.bc_lib[bid]
+        b.type = bc.type
+        b.name = bc.name
+        b.id = bc.id
+        b.color_id = bc.color_id
+        for nid, vals in bc.nodal_values.items():
+            b.nodal_values[int(nid)].CopyFrom(
+                _matrix(np.asarray(vals, dtype=np.float64).reshape(3, 1), 3, 1)
+            )
+
+    a = model.analysis
+    db.analysis_lib.type = a.type
+    db.analysis_lib.lin_solver = a.lin_solver
+    db.analysis_lib.lin_solver_tolerance = a.lin_solver_tolerance
+    db.analysis_lib.lin_solver_iter_max = a.lin_solver_maxiter
+    db.analysis_lib.inc_numb = a.inc_numb
+    db.analysis_lib.result_step_no = a.result_step_no
+
+    for pid, info in sorted(model.part_info.items()):
+        p = db.info.info_part[pid]
+        p.color_id = info.color_id
+        p.mat_id = info.mat_id
+        p.name = info.name
+        p.hex_type = info.hex_type
+        p.penta_type = info.penta_type
+        p.tet_type = info.tet_type
+
+    db.n_dof = 3 * nnode
+    return db
+
+
+def _matrix(arr: np.ndarray, rows: int, cols: int) -> pb.MatrixST:
+    m = pb.MatrixST(rows=rows, cols=cols)
+    m.m.extend(float(v) for v in np.asarray(arr, dtype=np.float64).ravel())
+    return m
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
-"""Jacobi-preconditioned conjugate gradients, and float64 refinement.
+"""Jacobi-preconditioned conjugate gradients, float64 refinement, and the
+certified solve.
 
-Port of stan_tpu/solvers/cg.py (pcg, pcg_refined) with the same contract:
+Port of stan_tpu/solvers/cg.py (pcg, pcg_refined, pcg_certified) with the
+same contract:
 
   * stop when ||r|| <= tol * ||b||;
   * maxiter == 0 means ndof (the exact-termination bound);
@@ -259,3 +261,92 @@ def pcg_refined(
         inner_s += time.perf_counter() - t0
     return RefinedResult(x, solves, rel, total_iters, rel <= tol,
                          sweep_s, inner_s)
+
+
+class CertifiedResult(NamedTuple):
+    u: torch.Tensor      # float64 solution, on the operator's device
+    cycles: int          # correction solves run
+    rel_residual: float  # true ||b - hi_apply(u)|| / ||b|| (float64)
+    inner_iters: int     # total low-precision CG iterations across cycles
+    converged: bool
+    # Wall time of the solve; with measure=True, of a second run.
+    seconds: float = 0.0
+
+
+def pcg_certified(
+    A: Callable[[torch.Tensor], torch.Tensor],
+    b64: torch.Tensor,
+    hi_apply: Callable[[torch.Tensor], torch.Tensor],
+    *,
+    diag: torch.Tensor,
+    tol: float = 1.0e-6,
+    inner_tol: float = 5.0e-3,
+    maxiter: int = 0,
+    ndof: Optional[int] = None,
+    max_cycles: int = 10,
+    measure: bool = False,
+) -> CertifiedResult:
+    """Certified solve from zero: restarted low-precision CG cycles under a
+    float64 true-residual loop, the JAX package's schedule.
+
+    x starts at 0, so the first residual is b exactly and needs no sweep.
+    Each cycle solves the correction A d = r with pcg to its cycle
+    tolerance, adds d to x in float64 and computes the true residual
+    r = b - hi_apply(x) in float64; the loop stops when ||r|| <= tol ||b||,
+    after max_cycles cycles, or when a cycle does not lower the residual
+    (the low-precision correction floor), returning that cycle's x. The
+    cycle tolerance is clip(0.3 tol / rel, inner_tol, 3e-2): the early
+    cycles contract by inner_tol, and the one that can finish the job goes
+    no deeper than the remaining gap needs (each restart pays for a new
+    Krylov space). inner_tol must sit above the low-precision correction
+    floor (about eps32 times the condition number, ~2e-3 at 1M DOF).
+
+    The reference keeps x as a (hi, lo) float32 pair and computes the
+    residual with a compensated float32 sweep (fem/df32.py), because the
+    TPU has no float64. The card has native float64: x and r are float64
+    tensors on the device, and hi_apply is a float64 operator there (the
+    float64 StencilOperator's apply: the sweep's double instantiation). x,
+    r and rel stay on the device; the host reads rel once per cycle, on top
+    of the inner pcg's own per-iteration read.
+
+    A: fast low-precision operator; b64: right-hand side (float64, cast if
+    not), on A's device; hi_apply: the float64 operator on the same
+    device; diag: A's Jacobi diagonal, whose dtype is that of the inner
+    solves; maxiter 0 caps each inner solve at ndof (default b64.numel()).
+    measure: run the solve twice and report the second run's wall time.
+    """
+    b64 = torch.as_tensor(b64, dtype=torch.float64, device=diag.device)
+    bnorm = float(torch.linalg.vector_norm(b64))
+    if bnorm == 0.0:
+        return CertifiedResult(torch.zeros_like(b64), 0, 0.0, 0, True)
+    if maxiter == 0:
+        maxiter = int(ndof if ndof is not None else b64.numel())
+    lo_dtype = diag.dtype
+
+    def run():
+        x = torch.zeros_like(b64)
+        r = b64  # x = 0: the first residual is b exactly
+        rel, prev_rel = 1.0, math.inf
+        cycles = iters = 0
+        while rel > tol and cycles < max_cycles and rel < prev_rel:
+            t = min(max(0.3 * tol / rel, inner_tol), 3.0e-2)
+            res = pcg(A, r.to(lo_dtype), diag=diag, tol=t, maxiter=maxiter,
+                      ndof=ndof)
+            x = x + res.u.to(torch.float64)
+            r = b64 - hi_apply(x)
+            prev_rel, rel = rel, float(torch.linalg.vector_norm(r)) / bnorm
+            cycles += 1
+            iters += res.iters
+        return x, rel, cycles, iters
+
+    def timed():
+        t0 = time.perf_counter()
+        out = run()
+        if b64.device.type == "cuda":
+            torch.cuda.synchronize(b64.device)
+        return out, time.perf_counter() - t0
+
+    (x, rel, cycles, iters), dt = timed()
+    if measure:
+        (x, rel, cycles, iters), dt = timed()
+    return CertifiedResult(x, cycles, rel, iters, rel <= tol, dt)

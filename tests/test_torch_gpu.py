@@ -630,3 +630,57 @@ def test_nccl_refuses_two_ranks_on_one_card(tmp_path):
     with ThreadPoolExecutor(2) as pool:
         list(pool.map(rank, (0, 1)))
     assert distributed.process_count() == 1 and distributed.backend() is None
+
+
+@pytest.mark.parametrize("n,kw", [((6, 5, 4), {}),
+                                  ((4, 2, 2), {"lx": 6.0, "ly": 1.5,
+                                               "lz": 3.0})])
+def test_exact_operator_on_cuda_matches_apply_numpy(n, kw):
+    """The exact-table float64 apply on the card (the sweep's double
+    instantiation) against the host sweep, to 1e-12 of max|f|."""
+    _need_cuda()
+    m = meshgen.hex_beam(*n, **kw)
+    ex = stencil.build_stencil_operator(m, dtype=torch.float64,
+                                        device="cuda")
+    tables, deltas = stencil.exact_tables(m)
+    free = ex.free_mask.cpu().numpy()
+    u = np.random.default_rng(sum(n)).standard_normal((3, *ex.node_shape))
+    before = stencil.launches
+    f = ex.apply(torch.as_tensor(u, device="cuda")).cpu().numpy()
+    assert stencil.launches == before + 1
+    want = free * stencil.apply_numpy(tables, deltas, free * u) + (
+        1.0 - free) * u
+    assert np.abs(f - want).max() <= 1e-12 * np.abs(want).max()
+
+
+def test_certified_solve_on_cuda_matches_cpu():
+    """pcg_certified on the card (float32 corrections, float64 residual,
+    both on the kernel) against the same solve on the CPU: cycles within
+    one, and both certified by the host float64 twin."""
+    _need_cuda()
+    from stan_tpu_torch.fem import hostops
+    from stan_tpu_torch.solvers import cg
+
+    m = meshgen.hex_beam(12, 6, 6)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        op = stencil.build_stencil_operator(m, dtype=torch.float32,
+                                            device=dev)
+        ex = stencil.build_stencil_operator(m, dtype=torch.float64,
+                                            device=dev)
+        b = ex.free_mask * ex.to_grid(torch.as_tensor(
+            m.load_vector(), dtype=torch.float64, device=dev))
+        before = stencil.launches
+        res = cg.pcg_certified(op.apply, b, ex.apply, diag=op.diagonal(),
+                               tol=1e-6, ndof=3 * m.nnode)
+        if dev == "cuda":
+            assert stencil.launches - before >= res.inner_iters + res.cycles
+        host = hostops.masked_f64_apply(m, op)
+        b_np = b.cpu().numpy()
+        true_rel = np.linalg.norm(b_np - host(res.u.cpu().numpy())) / (
+            np.linalg.norm(b_np))
+        assert res.u.device.type == dev
+        assert res.converged and res.rel_residual <= 1e-6
+        assert true_rel <= 1.2e-6
+        runs[dev] = res
+    assert abs(runs["cuda"].cycles - runs["cpu"].cycles) <= 1

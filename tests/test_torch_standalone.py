@@ -1,7 +1,8 @@
 """The port stands alone: it imports nothing of stan_tpu, jax or optax, and
-its copies of the reference's host modules (meshgen, model, STdb IO,
-checkpoints, the .vtu writer, the .bdf reader and writer, run records, the
-banded solver and its BFS order) agree with the originals.
+its copies of the reference's host modules (meshgen, model, validation,
+STdb IO with its protobuf writer, checkpoints, the .vtu writer, the .bdf
+reader and writer, run records, the float64 host operators, the banded
+solver and its BFS order) agree with the originals.
 
 The import scan reads the source, so it also sees imports inside functions
 that no test calls. The subprocess check that nothing of stan_tpu, jax or
@@ -83,6 +84,40 @@ def test_host_copy_names_its_source(rel):
     assert any(re.match(rf"# Copied (unchanged )?from stan_tpu/{rel}\b", line)
                for line in head), head
     assert (REPO / "stan_tpu" / rel).exists()
+
+
+# Functions of the host copies whose code is the reference's, statement for
+# statement (the others differ in their imports or in how they read a
+# tensor).
+SAME_CODE = [("core/validate.py", "ValidationError"),
+             ("core/validate.py", "check_model"),
+             ("core/validate.py", "validate"),
+             ("fem/hostops.py", "_b_matrix_np"),
+             ("fem/hostops.py", "element_stiffness_np"),
+             ("fem/hostops.py", "d_np"),
+             ("fem/hostops.py", "general_apply_np"),
+             ("io/stdb.py", "to_proto"),
+             ("io/stdb.py", "_matrix"),
+             ("io/stdb.py", "from_proto")]
+
+
+def _top_level(rel, root):
+    tree = ast.parse((REPO / root / rel).read_text())
+    return {n.name: ast.dump(n) for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+
+
+@pytest.mark.parametrize("rel,name", SAME_CODE,
+                         ids=[f"{r}:{n}" for r, n in SAME_CODE])
+def test_host_copy_keeps_the_reference_code(rel, name):
+    assert _top_level(rel, "stan_tpu_torch")[name] == _top_level(
+        rel, "stan_tpu")[name]
+
+
+@pytest.mark.parametrize("rel", ["fem/hostops.py", "core/validate.py"])
+def test_host_copy_has_every_reference_function(rel):
+    assert set(_top_level(rel, "stan_tpu")) <= set(
+        _top_level(rel, "stan_tpu_torch"))
 
 
 def test_import_scan_sees_lazy_imports():
