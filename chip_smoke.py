@@ -5,7 +5,8 @@ Phases, each of which raises on failure:
   1. the card's name and power limit, as nvidia-smi reports them;
   2. build every CUDA kernel from stan_tpu_torch/csrc (one nvcc per source,
      started together), print the build time and the assembler's register
-     reports;
+     reports; then build and load the host runtime (csrc/stanfem.cpp, the
+     host C++ compiler; no kernel) and print its build time;
   3. stencil_sweep against its plain PyTorch version on the card, on the
      70^3 beam's tables, on a small odd grid, on the 32^3 grid, on one
      x-plane (SX = 1) of it, on a 6x9x140 beam (z over two tiles) and on
@@ -146,6 +147,19 @@ Phases, each of which raises on failure:
      phase 6's base CG and certification; and phase 6's certified u
      checked by hostops.masked_f64_apply (no kernel) to 1.2e-6. No plain
      *_reference sweep runs on a CUDA tensor in it.
+ 25. (run after phase 24) the host runtime (native.py over
+     csrc/stanfem.cpp, OpenMP) on the 70^3 beam as meshgen builds it (no
+     results stored) against the port's Python bodies,
+     each pair timed in this process: the STdb written and read by
+     stdb.read (the native fast decode) and by from_proto, the .bdf
+     written and read by read_bdf (native) and read_bdf_python, the BFS
+     order (bfs_node_order) native and numpy, each pair equal field for
+     field; one apply_numpy (the native interior sweep) against
+     apply_numpy_reference (numpy) to 1e-13 of max|f|. Prints the host's
+     CPU model, os.cpu_count(), torch.get_num_threads() and the OpenMP
+     runtimes mapped into the process, and phase 6's float32 CG ms per
+     iteration again right after the native sweep (phase 6 timed it
+     before any had run).
 
 --kernels runs phases 1-5 only (build, every kernel against its plain
 version, the timings), prints the kernels line with no launch counts (no
@@ -172,9 +186,13 @@ Two measurements run only when asked for:
              `cli export` on the same STdb; `cli solve --type
              Nonlinear_Statics --increments 2` on it, `cli solve --solver
              Cholesky` on a 12x6x6 beam, `cli calibrate --sampler hmc`
-             (short) on the two-material 32^3 beam, and `cli calibrate`
+             (short) on the two-material 32^3 beam, `cli calibrate`
              with `[sharding] chains = 2`: exit code 2 and the ERROR line
-             with one card, a run that records the mesh with two or more.
+             with one card, a run that records the mesh with two or more;
+             and `cli solve` on an STdb of the 70^3 beam, printing its
+             "Read database" and "Write database" seconds, and the
+             solved STdb (results stored) read back by stdb.read and by
+             from_proto, each timed, required equal.
 
 Prints a JSON line of kernel facts and, last, one JSON line naming the
 device; before those, it checks that no module of stan_tpu was loaded.
@@ -283,6 +301,9 @@ PROC_ROWS = 2
 # CERT_HOST_TOL (tests/test_df32.py:112), the host and device residuals
 # to CERT_AGREE of each other (both float64).
 CERT_TOL, CERT_HOST_TOL, CERT_AGREE = 1e-6, 1.2e-6, 1e-3
+# The host runtime (phase 25): the native float64 interior sweep and the
+# numpy one sum the same products in other orders.
+HOST_SWEEP_RTOL = 1e-13
 
 
 # The six tetrahedra of a HEX8 around its corner-0 to corner-6 diagonal, in
@@ -1331,6 +1352,185 @@ def certified_phase(model, lin, timer, op32, card) -> int:
     return stencil.launches
 
 
+def model_gaps(a, b) -> list:
+    """The fields in which two FEModels differ (arrays exactly; the small
+    tables by value); [] when they are the same model."""
+    gaps = []
+    for name in ("node_ids", "coords", "elem_ids", "conn", "elem_pid",
+                 "elem_mat", "disp", "strain", "stress"):
+        x, y = getattr(a, name), getattr(b, name)
+        if (x is None) != (y is None) or (
+                x is not None and not np.array_equal(np.asarray(x),
+                                                      np.asarray(y))):
+            gaps.append(name)
+    if a.elem_type != b.elem_type:
+        gaps.append("elem_type")
+    if a.import_errors != b.import_errors:
+        gaps.append("import_errors")
+    for name in ("materials", "part_info"):
+        if ({k: vars(v) for k, v in getattr(a, name).items()}
+                != {k: vars(v) for k, v in getattr(b, name).items()}):
+            gaps.append(name)
+    if repr(a.analysis) != repr(b.analysis):
+        gaps.append("analysis")
+    def same_bc(x, y):
+        return ((x.id, x.type, x.name, x.color_id)
+                == (y.id, y.type, y.name, y.color_id)
+                and x.nodal_values.keys() == y.nodal_values.keys()
+                and all(np.array_equal(v, y.nodal_values[n])
+                        for n, v in x.nodal_values.items()))
+
+    if a.bcs.keys() != b.bcs.keys() or not all(
+            same_bc(a.bcs[k], b.bcs[k]) for k in a.bcs):
+        gaps.append("bcs")
+    return gaps
+
+
+@contextlib.contextmanager
+def numpy_bfs():
+    """Within: bfs_node_order runs its numpy body, not the native walk."""
+    from stan_tpu_torch import native
+
+    saved = native.bfs_order
+    native.bfs_order = lambda conn, nnode: None
+    try:
+        yield
+    finally:
+        native.bfs_order = saved
+
+
+def openmp_runtimes() -> list:
+    """The OpenMP runtime libraries mapped into this process."""
+    with open("/proc/self/maps") as f:
+        paths = {line.split()[-1] for line in f
+                 if "libgomp" in line or "libiomp" in line
+                 or "libomp" in line}
+    return sorted(paths)
+
+
+def host_cpu() -> str:
+    """The host CPU's vendor, model name (lscpu's where /proc/cpuinfo gives
+    none), family, model and stepping numbers and its logical CPUs."""
+    with open("/proc/cpuinfo") as f:
+        info = [line.split(":", 1) for line in f if ":" in line]
+    names = [v.strip() for k, v in info if k.strip() == "model name"]
+
+    def first(key):
+        return next((v.strip() for k, v in info if k.strip() == key), "?")
+
+    model = names[0] if names and names[0] != "unknown" else None
+    if model is None:
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True,
+                                 text=True).stdout
+        except OSError:
+            out = ""
+        model = next((line.split(":", 1)[1].strip()
+                      for line in out.splitlines()
+                      if line.startswith("Model name:")), "unknown")
+    return (f"{first('vendor_id')} {model} (family {first('cpu family')}, "
+            f"model {first('model')}, stepping {first('stepping')}), "
+            f"{len(names)} logical CPUs")
+
+
+def host_runtime_phase(cg_iter_ms, before_ms, card) -> None:
+    """Phase 25: the host runtime on hex_beam(N, N, N) (no results stored)
+    against the port's Python bodies, each pair timed (seconds) and
+    required equal; phase 6's CG ms per iteration (cg_iter_ms()) again
+    right after the native sweep, beside before_ms, its value before any
+    native sweep had run."""
+    import os
+    import tempfile
+
+    from stan_tpu_torch import _build
+    from stan_tpu_torch.core import meshgen
+    from stan_tpu_torch.fem import stencil
+    from stan_tpu_torch.io import nastran, stdb
+    from stan_tpu_torch.parallel import partition
+
+    t_phase = time.perf_counter()
+    model = meshgen.hex_beam(N, N, N)
+    secs = {}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[key] = time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"beam{N}.STdb")
+        timed("stdb.write", lambda: stdb.write(model, path))
+        size = os.path.getsize(path)
+        fast = timed("stdb.read native", lambda: stdb.read(path))
+
+        def general():
+            with open(path, "rb") as f:
+                return stdb.from_proto(stdb.pb.Database.FromString(f.read()))
+
+        slow = timed("stdb.read from_proto", general)
+        stdb_gaps = model_gaps(fast, slow)
+        bdf = os.path.join(tmp, f"beam{N}.bdf")
+        timed("write_bdf", lambda: nastran.write_bdf(model, bdf))
+        nat = timed("read_bdf native", lambda: nastran.read_bdf(bdf))
+        py = timed("read_bdf python",
+                   lambda: nastran.read_bdf_python(bdf))
+        bdf_gaps = model_gaps(nat, py)
+    conn = np.asarray(model.conn)
+    order = timed("bfs_node_order native",
+                  lambda: partition.bfs_node_order(conn, model.nnode))
+    with numpy_bfs():
+        order_py = timed("bfs_node_order numpy",
+                         lambda: partition.bfs_node_order(conn, model.nnode))
+    tables, deltas = stencil.exact_tables(model)
+    u = np.random.default_rng(SEED).standard_normal(
+        (3, *(n + 1 for n in (N, N, N))))
+    f_nat = timed("apply_numpy native",
+                  lambda: stencil.apply_numpy(tables, deltas, u))
+    after = [cg_iter_ms(), cg_iter_ms()]  # right after the OpenMP sweep
+    f_py = timed("apply_numpy numpy",
+                 lambda: stencil.apply_numpy_reference(tables, deltas, u))
+    sweep_gap = float(np.abs(f_nat - f_py).max() / np.abs(f_py).max())
+
+    lib = _build.host_library_path(_build.CSRC / "stanfem.cpp")
+    ldd = subprocess.run(["ldd", str(lib)], capture_output=True, text=True)
+    print(f"[{card}] host runtime: {host_cpu()}; os.cpu_count() "
+          f"{os.cpu_count()}, usable {len(os.sched_getaffinity(0))}, "
+          f"torch.get_num_threads() {torch.get_num_threads()}, "
+          f"OMP_NUM_THREADS {os.environ.get('OMP_NUM_THREADS')}")
+    print(f"[{card}] host runtime: OpenMP runtimes mapped "
+          f"{openmp_runtimes()}; ldd {lib.name}: "
+          + "; ".join(line.strip() for line in ldd.stdout.splitlines()
+                      if "omp" in line))
+    print(f"[{card}] host runtime: " + json.dumps({
+        "model": f"hex_beam({N},{N},{N})", "nnode": model.nnode,
+        "nelem": model.nelem, "stdb_bytes": size,
+        "seconds": secs,
+        "stdb_gaps": stdb_gaps, "bdf_gaps": bdf_gaps,
+        "bfs_equal": bool(np.array_equal(order, order_py)),
+        "apply_numpy_rel_gap": sweep_gap,
+        "cg_ms_per_iter_before_native_sweep": before_ms,
+        "cg_ms_per_iter_after_native_sweep": after}))
+    print(f"[{card}] host runtime phase: "
+          f"{time.perf_counter() - t_phase:.2f} s in all")
+    runtimes = openmp_runtimes()
+    require(len(runtimes) == 1,
+            f"{len(runtimes)} OpenMP runtimes mapped after the native sweep: "
+            f"{runtimes}")
+    require(not stdb_gaps, f"stdb.read and from_proto differ in {stdb_gaps}")
+    require(fast.nnode == model.nnode and fast.nelem == model.nelem,
+            "the STdb read back another model")
+    require(not bdf_gaps, f"read_bdf native and Python differ in {bdf_gaps}")
+    require(np.array_equal(nat.conn, model.conn)
+            and nat.import_errors == [], "the .bdf read back another mesh")
+    require(np.array_equal(order, order_py),
+            "bfs_node_order: native and numpy orders differ")
+    require(sorted(order.tolist()) == list(range(model.nnode)),
+            "the BFS order is not a permutation")
+    require(sweep_gap <= HOST_SWEEP_RTOL,
+            f"apply_numpy native against numpy: {sweep_gap:.3e}")
+
+
 @contextlib.contextmanager
 def plain_sweeps_refused():
     """Within: a plain *_reference sweep called on a CUDA tensor raises, so
@@ -2244,6 +2444,48 @@ def cli_nuts_export(card) -> None:
         require(len(vtus) == 2, f"cli export wrote {vtus}")
 
 
+def cli_read_database(card) -> None:
+    """`cli solve` on an STdb of the 70^3 beam: its "Read database" phase
+    (stdb.read, the native fast decode) and "Write database" seconds, from
+    the run record of --log-json; then the solved STdb (with results) read
+    back by stdb.read and by from_proto, each timed, required equal."""
+    import os
+    import tempfile
+
+    from stan_tpu_torch.core import meshgen
+    from stan_tpu_torch.io import stdb
+    from stan_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path, log = f"{tmp}/beam{N}.STdb", f"{tmp}/runs.jsonl"
+        stdb.write(meshgen.hex_beam(N, N, N), path)
+        argv = ["solve", path, "--device", "cuda", "--log-json", log]
+        print(f"[{card}] python -m stan_tpu_torch.cli {' '.join(argv)}")
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        wall_s = time.perf_counter() - t0
+        with open(log) as f:
+            phases = {r["phase"]: r["seconds"]
+                      for r in json.loads(f.readline())["phases"]}
+        print(f"[{card}] cli solve {N}^3: exit code {rc}, {wall_s:.2f} s; "
+              f"Read database {phases['Read database']:.3f} s, Write "
+              f"database {phases['Write database']:.3f} s")
+        require(rc == 0, f"cli solve {N}^3: exit code {rc}")
+        t0 = time.perf_counter()
+        fast = stdb.read(path)
+        fast_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with open(path, "rb") as f:
+            slow = stdb.from_proto(stdb.pb.Database.FromString(f.read()))
+        slow_s = time.perf_counter() - t0
+        print(f"[{card}] solved {N}^3 STdb ({os.path.getsize(path)} bytes, "
+              f"results stored): stdb.read {fast_s:.3f} s, from_proto "
+              f"{slow_s:.3f} s")
+    gaps = model_gaps(fast, slow)
+    require(not gaps, f"solved STdb: stdb.read and from_proto differ in {gaps}")
+    require(fast.disp is not None, "the solved STdb holds no displacements")
+
+
 def device() -> dict:
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
@@ -2325,6 +2567,10 @@ def main() -> int:
           f"({', '.join(p.name for p in libs.values())})")
     for path in libs.values():
         print(path.with_suffix(".log").read_text().strip())
+    t0 = time.perf_counter()
+    _build.host_library("stanfem")  # raises with the compiler's output
+    print(f"[{card}] host runtime build + load (csrc/stanfem.cpp, c++ "
+          f"{' '.join(_build.HOST_FLAGS)}): {time.perf_counter() - t0:.2f} s")
 
     # -- kernels vs plain versions ----------------------------------------
     rng = np.random.default_rng(SEED)
@@ -2567,6 +2813,10 @@ def main() -> int:
     with plain_sweeps_refused():
         launches += certified_phase(model, res, timer, op32, card)
 
+    # -- the host runtime against the Python bodies -----------------------
+    host_runtime_phase(lambda: wall(with_sync) / SYNC_ITERS * 1e3,
+                       [s1 / SYNC_ITERS * 1e3, s2 / SYNC_ITERS * 1e3], card)
+
     # -- the calibration main path ----------------------------------------
     cal_model = meshgen.hex_beam(G, G, G)
     reset_launches()
@@ -2668,6 +2918,7 @@ def main() -> int:
         cli_nuts_export(card)
         cli_general(card)
         cli_sharding(card)
+        cli_read_database(card)
 
     stray = sorted(m for m in sys.modules if m.split(".")[0] == "stan_tpu")
     require(not stray, f"the port loaded modules of stan_tpu: {stray}")

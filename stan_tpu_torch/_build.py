@@ -1,4 +1,5 @@
-"""Build the port's CUDA sources with nvcc at first use and bind them with ctypes.
+"""Build the port's CUDA sources with nvcc, and its host C++ sources with the
+host compiler, at first use; bind both with ctypes.
 
 The kernels have a plain C interface (``csrc/*.cu``), so one ``nvcc`` call
 builds a shared library from a source in seconds; nothing includes
@@ -11,6 +12,11 @@ an unchanged one is loaded as it is. Pointers and the stream are passed as
 ``ctypes.c_void_p`` from ``tensor.data_ptr()`` and
 ``torch.cuda.current_stream().cuda_stream``.
 
+The host runtime (``csrc/*.cpp``: plain C++ with OpenMP, no CUDA) is
+built the same way by the host C++ compiler (``c++`` on ``PATH``, with
+HOST_FLAGS) into the same folder, named by a hash of its source and the
+flags; it never needs a CUDA toolkit, so the CPU tests build it too.
+
 Nothing here runs at import: the CPU tests import every module of the port
 on machines with no ``nvcc``.
 """
@@ -21,6 +27,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import shutil
 import subprocess
 
 _PKG = pathlib.Path(__file__).resolve().parent
@@ -30,6 +37,7 @@ BUILD_DIR = _PKG / "_build"
 # target. -Xptxas -v writes registers, shared memory and spills to the log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-fopenmp", "-shared")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # The C entry points of each source and their argument types.
@@ -124,3 +132,45 @@ def check(code: int, what: str, name: str) -> None:
     if code != 0:
         msg = getattr(library(name), f"{name}_error_string")(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def host_library_path(source: pathlib.Path) -> pathlib.Path:
+    """Where the host library built from this exact source with HOST_FLAGS
+    lives: an edit to either gives another path."""
+    key = hashlib.sha256(" ".join(HOST_FLAGS).encode() + b"\0"
+                         + source.read_bytes())
+    return BUILD_DIR / f"{source.stem}-{key.hexdigest()[:16]}.so"
+
+
+def build_host(source: pathlib.Path) -> pathlib.Path:
+    """Compile a host C++ source with ``c++`` unless its library exists;
+    return the library's path. The compiler's output is kept beside the
+    library, with the suffix ``.log``. Raises RuntimeError, with that
+    output, when there is no compiler or the build fails."""
+    lib = host_library_path(source)
+    if lib.exists():
+        return lib
+    cxx = shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("no host C++ compiler (c++ on PATH): the port's "
+                           f"host runtime {source.name} is built at first use")
+    lib.parent.mkdir(exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp), str(source)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    log_tmp = tmp.with_suffix(".log")
+    log_tmp.write_text(proc.stdout)
+    os.replace(log_tmp, lib.with_suffix(".log"))
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{cxx} failed on {source.name} (exit code "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, lib)  # atomic: others see all or nothing
+    return lib
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The library of csrc/<name>.cpp, loaded; built first if it is
+    missing. Its caller keeps it (native.py for stanfem)."""
+    return ctypes.CDLL(str(build_host(CSRC / f"{name}.cpp")))

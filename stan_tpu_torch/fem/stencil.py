@@ -24,14 +24,16 @@ unit-λ and unit-μ tables fixed and (λ, μ) changing at run time, per chain.
 theta_sweep (one grid) and theta_sweep_batched (a [B, ...] batch of chains,
 one launch) compute it in one pass, on the kernel of csrc/theta_sweep.cu,
 with the coefficients read from device memory; theta_sweep_reference is
-their plain version. ThetaSweep makes the sweep differentiable in (λ, μ, u).
+their plain version. The solve's gradient in (λ, μ) takes theta_coef_grads
+(infer/forward._StencilSolve).
 
 exact_tables builds the float64 tables from the float64 element stiffness
-on the host, whatever the operator dtype, and apply_numpy applies them in
-numpy: the host float64 reference for the sweep. The float64
-StencilOperator carries the same tables (to 1e-14) on a device, where the
-sweep's double instantiation gives the float64 residual of the certified
-solve (solvers/cg.pcg_certified).
+on the host, whatever the operator dtype, and apply_numpy applies them on
+the host (the interior sweep in the host runtime, csrc/stanfem.cpp; the
+boundary deltas in numpy): the host float64 reference for the sweep. The
+float64 StencilOperator carries the same tables (to 1e-14) on a device,
+where the sweep's double instantiation gives the float64 residual of the
+certified solve (solvers/cg.pcg_certified).
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from stan_tpu_torch.core.model import FEModel
-from stan_tpu_torch import _build
+from stan_tpu_torch import _build, native
 from stan_tpu_torch.fem import hostops, structured
 from stan_tpu_torch.fem.operator import resolve_device
 from stan_tpu_torch.fem.structured import StructuredOperator
@@ -384,31 +386,6 @@ def theta_coef_grads(tables2: torch.Tensor, ct: torch.Tensor,
             (ct * theta_apply(tables2, nil, one, u)).sum(axes))
 
 
-class ThetaSweep(torch.autograd.Function):
-    """(λ [B], μ [B], u [B, 3, X, Y, Z]) -> λ_b·K_λu_b + μ_b·K_μu_b, with
-    the reference's derivative rules (stan_tpu/fem/stencil.py:776-809):
-    the gradient in u is the same sweep of the cotangent (the operator is
-    self-adjoint), and the gradients in λ and μ are ⟨ct, K_λu⟩ and
-    ⟨ct, K_μu⟩ per chain. Usage: ThetaSweep.apply(lam, mu, u, tables2)."""
-
-    @staticmethod
-    def forward(ctx, lam, mu, u, tables2):
-        ctx.save_for_backward(lam, mu, u)
-        ctx.tables2 = tables2
-        return theta_apply(tables2, lam, mu, u)
-
-    @staticmethod
-    def backward(ctx, ct):
-        lam, mu, u = ctx.saved_tensors
-        g_lam = g_mu = g_u = None
-        if ctx.needs_input_grad[2]:
-            g_u = theta_apply(ctx.tables2, lam, mu, ct)
-        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            g_lam, g_mu = theta_coef_grads(ctx.tables2, ct, u)
-            g_lam, g_mu = g_lam.to(lam.dtype), g_mu.to(mu.dtype)
-        return g_lam, g_mu, g_u, None
-
-
 @dataclasses.dataclass(frozen=True)
 class StencilOperator:
     """Masked stiffness operator backed by the stencil sweep. Diagonal,
@@ -519,25 +496,23 @@ def exact_tables(model: FEModel):
     return tables, delta_tables(tables)
 
 
-def apply_numpy(tables: dict, deltas: dict, u: np.ndarray) -> np.ndarray:
-    """Host float64 K·u on the node grid [3, nnx, nny, nnz]: the interior
-    table over the whole grid, then each boundary signature's delta over
-    its region. The reference for the device sweep, independent of it."""
-    u = np.asarray(u, np.float64)
-    _, NNX, NNY, NNZ = u.shape
-    up = np.pad(u, ((0, 0), (1, 1), (1, 1), (1, 1)))
+def _region_apply(up: np.ndarray, table: dict, xs, xlen, ys, ylen, zs,
+                  zlen) -> np.ndarray:
+    """One table over the region [xs, xs+xlen) x [ys, ...) x [zs, ...) of
+    the node grid, in numpy, from the ghost-padded grid up."""
+    out = np.zeros((3, xlen, ylen, zlen))
+    for (ox, oy, oz), m in table.items():
+        sub = up[:,
+                 1 + xs + ox:1 + xs + ox + xlen,
+                 1 + ys + oy:1 + ys + oy + ylen,
+                 1 + zs + oz:1 + zs + oz + zlen]
+        out += np.einsum("cd,dxyz->cxyz", np.asarray(m, np.float64), sub)
+    return out
 
-    def region_apply(table, xs, xlen, ys, ylen, zs, zlen):
-        out = np.zeros((3, xlen, ylen, zlen))
-        for (ox, oy, oz), m in table.items():
-            sub = up[:,
-                     1 + xs + ox:1 + xs + ox + xlen,
-                     1 + ys + oy:1 + ys + oy + ylen,
-                     1 + zs + oz:1 + zs + oz + zlen]
-            out += np.einsum("cd,dxyz->cxyz", np.asarray(m, np.float64), sub)
-        return out
 
-    f = region_apply(tables[_INTERIOR], 0, NNX, 0, NNY, 0, NNZ)
+def _add_deltas(f: np.ndarray, deltas: dict, up: np.ndarray) -> np.ndarray:
+    """f plus each boundary signature's delta table over its region."""
+    _, NNX, NNY, NNZ = f.shape
     x_region = {"L": (0, 1), "H": (NNX - 1, 1), "F": (1, NNX - 2)}
     y_region = {"L": (0, 1), "H": (NNY - 1, 1), "F": (1, NNY - 2)}
     z_region = {"L": (0, 1), "H": (NNZ - 1, 1), "F": (1, NNZ - 2)}
@@ -547,7 +522,31 @@ def apply_numpy(tables: dict, deltas: dict, u: np.ndarray) -> np.ndarray:
         zs, zlen = z_region[sig[2]]
         if xlen <= 0 or ylen <= 0 or zlen <= 0:
             continue
-        f[:, xs:xs + xlen, ys:ys + ylen, zs:zs + zlen] += region_apply(
-            dsig, xs, xlen, ys, ylen, zs, zlen)
+        f[:, xs:xs + xlen, ys:ys + ylen, zs:zs + zlen] += _region_apply(
+            up, dsig, xs, xlen, ys, ylen, zs, zlen)
     return f
 
+
+def apply_numpy(tables: dict, deltas: dict, u: np.ndarray) -> np.ndarray:
+    """Host float64 K·u on the node grid [3, nnx, nny, nnz]: the interior
+    table over the whole grid in the host runtime (native.
+    stencil_interior_f64, OpenMP over x-planes), then each boundary
+    signature's delta over its region in numpy. The reference for the
+    device sweep, independent of it; apply_numpy_reference is its plain
+    numpy version."""
+    up = np.pad(np.asarray(u, np.float64), ((0, 0), (1, 1), (1, 1), (1, 1)))
+    tab = np.zeros((27, 3, 3), np.float64)
+    for (ox, oy, oz), m in tables[_INTERIOR].items():
+        tab[(ox + 1) * 9 + (oy + 1) * 3 + (oz + 1)] = m
+    return _add_deltas(native.stencil_interior_f64(up, tab), deltas, up)
+
+
+def apply_numpy_reference(tables: dict, deltas: dict, u: np.ndarray
+                          ) -> np.ndarray:
+    """apply_numpy with the interior table in numpy as well: its plain
+    version, for the tests."""
+    u = np.asarray(u, np.float64)
+    _, NNX, NNY, NNZ = u.shape
+    up = np.pad(u, ((0, 0), (1, 1), (1, 1), (1, 1)))
+    f = _region_apply(up, tables[_INTERIOR], 0, NNX, 0, NNY, 0, NNZ)
+    return _add_deltas(f, deltas, up)

@@ -1,4 +1,4 @@
-# Copied from stan_tpu/io/nastran.py, without the native parser (use_native).
+# Copied from stan_tpu/io/nastran.py (use_native=False is read_bdf_python).
 """Nastran bulk-data (.bdf) mesh import.
 
 Host-side parser reproducing the reference's reader so its meshes load
@@ -93,11 +93,37 @@ def read_bdf(path: str, *, strict: bool = False) -> FEModel:
     """Read a Nastran .bdf mesh into an FEModel.
 
     ``strict=True`` restricts element import to the reference's whitelist
-    (CHEXA only, Database.cs:44-48). Cards that fail to parse are collected
-    into ``import_errors`` (the reference keeps the raw lines,
-    Database.cs:72-94). The port has only the Python parser; the
-    reference's optional native C++ parser is not copied.
+    (CHEXA only, Database.cs:44-48). The native C++ parser
+    (csrc/stanfem.cpp) reads the file; a file with parse errors, or with
+    mixed element families, is read again by the Python parser
+    (read_bdf_python), so the offending card text is collected into
+    ``import_errors`` (the reference keeps the raw lines, Database.cs:72-94).
     """
+    from stan_tpu_torch import native
+
+    parsed = native.bdf_parse(path, strict=strict)
+    if parsed is not None and parsed[5] == 0:
+        node_ids, coords, elem_ids, elem_pids, conn, _ = parsed
+        npe = conn.shape[1] if conn.size else 8
+        etype = "HEX8_G2" if npe == 8 else "TET4_G2"
+        model = FEModel(
+            node_ids=node_ids,
+            coords=coords,
+            elem_ids=elem_ids,
+            conn=conn,
+            elem_pid=elem_pids,
+            elem_type=[etype] * len(elem_ids),
+            elem_mat=np.zeros(len(elem_ids), dtype=np.int64),
+        )
+        for pid in sorted(set(int(p) for p in elem_pids)):
+            model.part_info[pid] = PartInfo(name=f"Part_{pid}")
+        return model
+    return read_bdf_python(path, strict=strict)
+
+
+def read_bdf_python(path: str, *, strict: bool = False) -> FEModel:
+    """The Python parser alone: read_bdf's semantic spec, and its path for
+    a file that the native parser declines or finds errors in."""
     with open(path, "r", errors="replace") as f:
         data = f.read().splitlines()
     return _parse_lines(data, strict=strict)

@@ -1,4 +1,4 @@
-# Copied from stan_tpu/io/stdb.py, without the native fast decode.
+# Copied from stan_tpu/io/stdb.py.
 """STdb file IO: the reference's single-file model+results format.
 
 The STdb file is a protobuf-serialized ``Database`` message; the same file is
@@ -400,6 +400,283 @@ def serialize(model: FEModel) -> bytes:
 
 
 # ---------------------------------------------------------------------------
+# Fast array-level deserializer (native wire scan + numpy assembly)
+# ---------------------------------------------------------------------------
+
+def deserialize_fast(data: bytes):
+    """Vectorized STdb decode: native wire scan -> numpy assembly.
+
+    Mirror of ``serialize``: the per-node/per-element Python loops of
+    ``from_proto`` are slow at 1M nodes, and the solver must *read* the
+    same file it writes (Solver.cs:26-27).
+    Here the bulk maps (node_lib/elem_lib) are walked by the native
+    protobuf scanner (csrc/stanfem.cpp stanfem_pb_scan_many, a constant
+    number of C calls regardless of model size) and assembled
+    array-at-a-time; the small remainder (materials, BCs, analysis, parts)
+    is re-framed into a reduced Database message and parsed by the
+    generated bindings. Returns None whenever the input uses a layout this
+    decoder doesn't model (packed repeats, missing fields, ragged counts)
+    — read then takes the general from_proto path, which accepts
+    anything protobuf-net may produce.
+    """
+    from stan_tpu_torch import native
+    from stan_tpu_torch.io import wire
+
+    buf = np.frombuffer(data, np.uint8)
+    top = native.pb_scan_many(buf, np.array([0]), np.array([len(data)]))
+    if top is None:
+        return None
+    _, tfield, twt, ta, tb = top
+
+    def entries(fno):
+        sel = (tfield == fno) & (twt == 2)
+        return ta[sel], ta[sel] + tb[sel]
+
+    nstart, nend = entries(1)   # node_lib map entries
+    estart, eend = entries(2)   # elem_lib map entries
+
+    # Everything that is not one of the two bulk maps is re-framed into a
+    # tiny Database message for the generated parser.
+    rest = []
+    for i in np.nonzero((tfield != 1) & (tfield != 2))[0]:
+        f, w, a, b = int(tfield[i]), int(twt[i]), int(ta[i]), int(tb[i])
+        if w == 0:
+            rest.append(bytes([wire.tag(f, 0)]) + wire.varint(a))
+        elif w == 2:
+            rest.append(wire.length_delimited(f, data[a:a + b]))
+        elif w == 1:
+            rest.append(bytes([wire.tag(f, 1)])
+                        + np.int64(a).tobytes())
+        else:
+            return None
+    small = pb.Database.FromString(b"".join(rest))
+
+    # ---- node_lib ----
+    nnode = len(nstart)
+    sc = native.pb_scan_many(buf, nstart, nend)
+    if sc is None:
+        return None
+    ebody, efield, ewt, ea, eb = sc
+    ksel = (efield == 1) & (ewt == 0)
+    vsel = (efield == 2) & (ewt == 2)
+    if ksel.sum() != nnode or vsel.sum() != nnode:
+        return None
+    node_keys = ea[ksel]
+    nb_start, nb_end = ea[vsel], ea[vsel] + eb[vsel]
+    sc = native.pb_scan_many(buf, nb_start, nb_end)
+    if sc is None:
+        return None
+    nbody, nfield, nwt, na, nb_ = sc
+
+    def fixed64_per_body(fno, n, per, default=np.nan):
+        """[n, per] float64 from repeated fixed64 field fno, or None on a
+        count mismatch (per=0 means: infer uniform count, may be 0)."""
+        sel = (nfield == fno) & (nwt == 1)
+        cnt = np.bincount(nbody[sel], minlength=n)
+        if per == 0:
+            if not cnt.size:
+                return np.zeros((n, 0))
+            per = int(cnt[0]) if cnt.max(initial=0) else 0
+            if per == 0:
+                return np.zeros((n, 0))
+        if not (cnt == per).all():
+            return None
+        vals = na[sel].view(np.float64)
+        return vals.reshape(n, per)
+
+    coords = np.empty((nnode, 3), np.float64)
+    for axis, fno in ((0, 2), (1, 3), (2, 4)):
+        col = fixed64_per_body(fno, nnode, 1)
+        if col is None:
+            return None
+        coords[:, axis] = col[:, 0]
+    dx = fixed64_per_body(7, nnode, 0)
+    dy = fixed64_per_body(8, nnode, 0)
+    dz = fixed64_per_body(9, nnode, 0)
+    if dx is None or dy is None or dz is None or \
+            not (dx.shape == dy.shape == dz.shape):
+        return None
+
+    order = np.argsort(node_keys, kind="stable")
+    node_ids = node_keys[order]
+    if len(np.unique(node_ids)) != nnode:
+        return None
+    coords = coords[order]
+    disp = None
+    if dx.shape[1]:
+        disp = np.stack([dx[order], dy[order], dz[order]], axis=-1)
+        disp = np.ascontiguousarray(disp.transpose(1, 0, 2))  # [ninc, nnode, 3]
+
+    # ---- elem_lib ----
+    nelem = len(estart)
+    conn = np.zeros((0, 8), np.int64)
+    elem_ids = np.zeros(0, np.int64)
+    elem_pid = np.zeros(0, np.int64)
+    elem_mat = np.zeros(0, np.int64)
+    elem_type: list = []
+    strain = stress = None
+    if nelem:
+        sc = native.pb_scan_many(buf, estart, eend)
+        if sc is None:
+            return None
+        xbody, xfield, xwt, xa, xb = sc
+        ksel = (xfield == 1) & (xwt == 0)
+        vsel = (xfield == 2) & (xwt == 2)
+        if ksel.sum() != nelem or vsel.sum() != nelem:
+            return None
+        elem_keys = xa[ksel]
+        eb_start, eb_end = xa[vsel], xa[vsel] + xb[vsel]
+        sc = native.pb_scan_many(buf, eb_start, eb_end)
+        if sc is None:
+            return None
+        ybody, yfield, ywt, ya, yb = sc
+
+        def varint_col(fno, default=0):
+            out = np.full(nelem, default, np.int64)
+            sel = (yfield == fno) & (ywt == 0)
+            if np.bincount(ybody[sel], minlength=nelem).max(initial=0) > 1:
+                return None
+            out[ybody[sel]] = ya[sel]
+            return out
+
+        elem_pid = varint_col(3)
+        elem_mat = varint_col(4)
+        if elem_pid is None or elem_mat is None:
+            return None
+
+        nsel = (yfield == 5) & (ywt == 0)
+        cnt = np.bincount(ybody[nsel], minlength=nelem)
+        if not cnt.size or not (cnt == cnt[0]).all() or cnt[0] == 0:
+            return None
+        nn = int(cnt[0])
+        conn_ext = ya[nsel].reshape(nelem, nn)
+
+        # type strings: padded byte matrix -> list[str]
+        tsel = (yfield == 2) & (ywt == 2)
+        tcnt = np.bincount(ybody[tsel], minlength=nelem)
+        if tcnt.max(initial=0) > 1:
+            return None
+        ttypes = np.full(nelem, "HEX8_G2", dtype=object)
+        if tsel.any():
+            offs, lens = ya[tsel], yb[tsel]
+            ml = int(lens.max(initial=0))
+            padded = np.zeros((len(offs), ml), np.uint8)
+            idx = offs[:, None] + np.arange(ml)
+            valid = np.arange(ml)[None, :] < lens[:, None]
+            padded[valid] = buf[idx[valid]]
+            strs = padded.view(f"S{ml}")[:, 0].astype(str)
+            ttypes[ybody[tsel]] = strs
+        elem_type = ttypes.tolist()
+
+        # strain/stress: one MatrixST per increment per element
+        def tensor(fno, ninc_expected):
+            msel = (yfield == fno) & (ywt == 2)
+            if not msel.any():
+                return None if ninc_expected else np.zeros(0)
+            cnt = np.bincount(ybody[msel], minlength=nelem)
+            if not (cnt == ninc_expected).all():
+                return "mismatch"
+            ms, me = ya[msel], ya[msel] + yb[msel]
+            sc2 = native.pb_scan_many(buf, ms, me)
+            if sc2 is None:
+                return "mismatch"
+            mb, mf, mw, ma, _ = sc2
+            dsel = (mf == 1) & (mw == 1)
+            dc = np.bincount(mb[dsel], minlength=len(ms))
+            if not (dc == nn * 6).all():
+                return "mismatch"
+            vals = ma[dsel].view(np.float64).reshape(len(ms), nn, 6)
+            # occurrence rank within each element = increment index; the
+            # scan emits per-body records in order, so reshape works
+            return vals.reshape(nelem, ninc_expected, nn, 6)
+
+        ninc = small.analysis_lib.result_step_no + 1 \
+            if small.analysis_lib.result_step_no else 0
+        if ninc and disp is not None and disp.shape[0] >= ninc:
+            st = tensor(6, ninc)
+            ss = tensor(7, ninc)
+            if isinstance(st, str) or isinstance(ss, str):
+                return None
+            # from_proto parity: results present -> tensors default to zeros
+            # when a map entry carries no strain/stress messages.
+            zeros = np.zeros((ninc, nelem, nn, 6))
+            strain = (zeros if st is None or np.ndim(st) != 4
+                      else np.ascontiguousarray(st.transpose(1, 0, 2, 3)))
+            stress = (zeros.copy() if ss is None or np.ndim(ss) != 4
+                      else np.ascontiguousarray(ss.transpose(1, 0, 2, 3)))
+
+        eorder = np.argsort(elem_keys, kind="stable")
+        elem_ids = elem_keys[eorder]
+        if len(np.unique(elem_ids)) != nelem:
+            return None
+        conn_ext = conn_ext[eorder]
+        elem_pid = elem_pid[eorder]
+        elem_mat = elem_mat[eorder]
+        elem_type = [elem_type[i] for i in eorder]
+        if strain is not None:
+            strain = strain[:, eorder]
+            stress = stress[:, eorder]
+
+        conn = np.searchsorted(node_ids, conn_ext)
+        if not np.all(node_ids[np.clip(conn, 0, nnode - 1)] == conn_ext):
+            return None
+    else:
+        nn = 8
+
+    model = FEModel(
+        node_ids=node_ids,
+        coords=coords,
+        elem_ids=elem_ids,
+        conn=conn.reshape(nelem, nn) if nelem else np.zeros((0, nn), np.int64),
+        elem_pid=elem_pid,
+        elem_type=elem_type,
+        elem_mat=elem_mat if nelem else None,
+    )
+    _fill_small_tables(model, small)
+    ninc = model.analysis.result_step_no + 1 \
+        if model.analysis.result_step_no else 0
+    if ninc and disp is not None and disp.shape[0] >= ninc:
+        model.disp = disp[:ninc]
+        if strain is not None:
+            model.strain = strain[:ninc]
+            model.stress = stress[:ninc]
+    return model
+
+
+def _fill_small_tables(model: FEModel, db: pb.Database) -> None:
+    """Materials / BCs / analysis / part info from a parsed Database
+    message (the non-bulk fields; shared by from_proto and the fast path)."""
+    for mid, m in db.mat_lib.items():
+        model.materials[mid] = Material(
+            id=m.id, name=m.name or "blank", type=m.type or "Elastic",
+            E=m.e, poisson=m.poisson, color_id=m.color_id,
+        )
+    for bid, b in db.bc_lib.items():
+        bc = BoundaryCondition(
+            id=b.id, type=b.type, name=b.name or "blank", color_id=b.color_id
+        )
+        for nid, mat in b.nodal_values.items():
+            bc.nodal_values[nid] = np.asarray(
+                mat.m, dtype=np.float64).reshape(-1)[:3]
+        model.bcs[bid] = bc
+    a = db.analysis_lib
+    model.analysis = AnalysisSettings(
+        type=a.type or "Linear_Statics",
+        lin_solver=a.lin_solver or "CG",
+        lin_solver_tolerance=a.lin_solver_tolerance or 1.0e-6,
+        lin_solver_maxiter=a.lin_solver_iter_max,
+        inc_numb=a.inc_numb,
+        result_step_no=a.result_step_no,
+    )
+    for pid, p in db.info.info_part.items():
+        model.part_info[pid] = PartInfo(
+            color_id=p.color_id, mat_id=p.mat_id, name=p.name or "blank",
+            hex_type=p.hex_type or "blank", penta_type=p.penta_type or "blank",
+            tet_type=p.tet_type or "blank",
+        )
+
+
+# ---------------------------------------------------------------------------
 # File-level API (same contract as the reference: one file, read + overwrite)
 # ---------------------------------------------------------------------------
 
@@ -411,6 +688,9 @@ def write(model: FEModel, path: str) -> None:
 def read(path: str) -> FEModel:
     with open(path, "rb") as f:
         data = f.read()
-    # The general path, which reads anything protobuf-net can produce. The
-    # reference's native fast decode (deserialize_fast) is not copied.
+    model = deserialize_fast(data)
+    if model is not None:
+        return model
+    # General path: anything protobuf-net can produce (packed repeats,
+    # unusual field layouts), which deserialize_fast does not model.
     return from_proto(pb.Database.FromString(data))

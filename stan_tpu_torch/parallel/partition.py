@@ -1,4 +1,4 @@
-# Copied from stan_tpu/parallel/partition.py (without the native fast path of bfs_node_order).
+# Copied from stan_tpu/parallel/partition.py.
 """Domain decomposition: node/element partitioning for the device mesh.
 
 The reference's AssignDOF graph walk (src/STAN_Database/Database.cs:140-234)
@@ -26,8 +26,16 @@ def bfs_node_order(conn: np.ndarray, nnode: int) -> np.ndarray:
     node adjacency from shared elements, seed at a node with the fewest
     incident elements, breadth-first assign new indices. Returns
     `order[new_index] = old_index` covering all nodes (isolated nodes are
-    appended at the end).
+    appended at the end). The walk runs in the host runtime
+    (native.bfs_order); the numpy body below is its spec, and runs only if
+    the native walk reports a node it missed.
     """
+    from stan_tpu_torch import native
+
+    nat = native.bfs_order(conn, nnode)
+    if nat is not None:
+        return nat
+
     nelem, nn = conn.shape
     # node -> element incidence counts (for the peripheral seed)
     counts = np.bincount(conn.ravel(), minlength=nnode)

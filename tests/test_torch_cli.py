@@ -113,8 +113,8 @@ def test_bdf_bad_card_collected_not_fatal(tmp_path):
 
 @pytest.mark.parametrize("case", ["beam", "tet", "quirky", "bad", "strict"])
 def test_read_bdf_equals_reference_python_parse(tmp_path, case):
-    """The port's parser (the reference's pure-Python path, without its
-    native one) gives the reference's model on the same file."""
+    """The port's read_bdf (its native parser; the Python one for a file
+    with errors) gives the reference's Python parse of the same file."""
     path = tmp_path / f"{case}.bdf"
     strict = case == "strict"
     if case in ("beam", "strict"):

@@ -174,19 +174,24 @@ def test_banded_matches_reference(name, monkeypatch):
 
 def test_banded_order_on_scrambled_numbering(monkeypatch):
     """tests/test_banded.py:72-98 on the port: with node ids scrambled, the
-    BFS order (the reference's pure-Python one) recovers a band near the
-    cross-section's, the same half-bandwidth as the reference's."""
+    BFS order recovers a band near the cross-section's, the same order and
+    half-bandwidth as the reference's: the native walk of each package,
+    then the numpy body of each. (The two walks break ties between seeds
+    of equal degree differently here: the numpy argsort is not stable.)"""
     import copy
 
-    monkeypatch.setattr("stan_tpu.native.bfs_order", lambda conn, n: None)
     m = meshgen.hex_beam(40, 3, 3)
     perm = np.random.default_rng(0).permutation(m.nnode)
     m2 = copy.copy(m)
     m2.coords = np.asarray(m.coords)[np.argsort(perm)]
     m2.conn = perm[np.asarray(m.conn)]
-    got, want = banded.band_structure(m2), jbanded.band_structure(m2)
-    np.testing.assert_array_equal(got.order, want.order)
-    assert got.hbw == want.hbw <= 4 * banded.band_structure(m).hbw
+    for walk in ("native", "numpy"):
+        if walk == "numpy":
+            for mod in ("stan_tpu.native", "stan_tpu_torch.native"):
+                monkeypatch.setattr(f"{mod}.bfs_order", lambda conn, n: None)
+        got, want = banded.band_structure(m2), jbanded.band_structure(m2)
+        np.testing.assert_array_equal(got.order, want.order)
+        assert got.hbw == want.hbw <= 4 * banded.band_structure(m).hbw
 
 
 def test_banded_memory_refusal():

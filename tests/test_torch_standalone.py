@@ -75,7 +75,7 @@ HOST_COPIES = ["core/model.py", "core/meshgen.py", "core/validate.py",
                "fem/elements.py", "fem/hostops.py", "io/wire.py",
                "io/stdb_pb2.py", "io/stdb.py", "io/vtu.py", "io/nastran.py",
                "utils/config.py", "utils/checkpoint.py", "utils/runlog.py",
-               "solvers/banded.py", "parallel/partition.py"]
+               "solvers/banded.py", "parallel/partition.py", "native.py"]
 
 
 @pytest.mark.parametrize("rel", HOST_COPIES)
@@ -114,10 +114,42 @@ def test_host_copy_keeps_the_reference_code(rel, name):
         rel, "stan_tpu")[name]
 
 
-@pytest.mark.parametrize("rel", ["fem/hostops.py", "core/validate.py"])
+# Reference functions a host copy leaves out, each because no path of the
+# port would call it: native.available (every path calls the library and
+# raises if it cannot be built) and native.node_incidence (the incidence
+# tables are fem/operator.node_incidence's, in numpy, as in the reference).
+LEFT_OUT = {"native.py": {"available", "node_incidence"}}
+
+
+@pytest.mark.parametrize("rel", ["fem/hostops.py", "core/validate.py",
+                                 "io/stdb.py", "io/nastran.py",
+                                 "parallel/partition.py", "native.py"])
 def test_host_copy_has_every_reference_function(rel):
-    assert set(_top_level(rel, "stan_tpu")) <= set(
+    missing = set(_top_level(rel, "stan_tpu")) - set(
         _top_level(rel, "stan_tpu_torch"))
+    assert missing == LEFT_OUT.get(rel, set())
+
+
+HOST_SOURCES = sorted(str(p.relative_to(REPO)) for p in
+                      (REPO / "stan_tpu_torch" / "csrc").iterdir())
+
+
+@pytest.mark.parametrize("rel", PORT_FILES + HOST_SOURCES)
+def test_port_file_names_no_reference_library(rel):
+    """The port builds its own host runtime from csrc/stanfem.cpp: no file
+    of it names the reference's native/ folder or its library, apart from
+    the header that names the copy's source."""
+    lines = (REPO / rel).read_text().splitlines()
+    bad = [n for n, line in enumerate(lines, 1)
+           if re.search(r"(?<![\w.])native/|libstanfem", line)
+           and not (n == 1 and line.startswith("// Copied from native/"))]
+    assert not bad, f"{rel} names native/ or libstanfem at lines {bad}"
+
+
+def test_host_runtime_names_its_source():
+    head = (REPO / "stan_tpu_torch/csrc/stanfem.cpp").read_text()
+    assert head.startswith("// Copied from native/stanfem.cpp")
+    assert (REPO / "native/stanfem.cpp").exists()
 
 
 def test_import_scan_sees_lazy_imports():

@@ -4,10 +4,12 @@ stan_tpu, in float64 on the CPU.
 theta_sweep_reference (the plain version every CPU tensor takes) is held
 against the Pallas kernels fused_sweep_theta and fused_sweep_theta_batched
 themselves, run in interpret mode on the CPU (jitted with the flags traced,
-so each kernel compiles once per module). ThetaSweep's gradients are held
-against jax.vjp of stan_tpu.fem.stencil.theta_sweep and against
-torch.autograd.gradcheck. Tolerance of the sweeps: 1e-12·max|f| (the two
-sides sum the same products in other orders).
+so each kernel compiles once per module). The sweep's cotangents, as the
+stencil forward's backward forms them (theta_apply, theta_coef_grads), are
+held against jax.vjp of stan_tpu.fem.stencil.theta_sweep, and that
+solve's gradient against torch.autograd.gradcheck. Tolerance of the
+sweeps: 1e-12·max|f| (the two sides sum the same products in other
+orders).
 """
 
 import functools
@@ -24,6 +26,7 @@ from stan_tpu.core import meshgen
 from stan_tpu.fem import stencil as jstencil
 from stan_tpu.fem import structured as jstructured
 from stan_tpu_torch.fem import stencil
+from stan_tpu_torch.infer import forward
 
 F64 = torch.float64
 FLAGS = [(1, 1), (0, 1), (1, 0), (0, 0)]
@@ -149,8 +152,10 @@ def _grid_tables(n=(4, 3, 3)):
 
 @pytest.mark.parametrize("batched", [False, True], ids=["one", "chains"])
 def test_theta_grads_match_jax_vjp(batched):
-    """ThetaSweep's (λ, μ, u) cotangents against jax.vjp of the reference
-    primitive (its transpose rules), on a random cotangent."""
+    """The sweep's (λ, μ, u) cotangents as the solve's backward forms them,
+    against jax.vjp of the reference primitive (its transpose rules), on a
+    random cotangent: the cotangent of u is the same sweep of ct (the
+    operator is self-adjoint), those of λ and μ are theta_coef_grads."""
     fl, fm, t2, shape = _grid_tables()
     B = 3 if batched else 1
     u = _rand((B, 3) + shape, seed=5)
@@ -168,33 +173,40 @@ def test_theta_grads_match_jax_vjp(batched):
     else:
         out, gl, gm, gu = (g[None] for g in sweep_vjp(lam[0], mu[0], u[0],
                                                        ct[0]))
-    tl_, tm_, tu = (torch.tensor(lam, requires_grad=True),
-                    torch.tensor(mu, requires_grad=True),
-                    torch.tensor(u, requires_grad=True))
-    f = stencil.ThetaSweep.apply(tl_, tm_, tu, t2)
-    f.backward(torch.as_tensor(ct))
+    tl_, tm_, tu, tct = (torch.as_tensor(a) for a in (lam, mu, u, ct))
+    f = stencil.theta_apply(t2, tl_, tm_, tu)
+    g_u = stencil.theta_apply(t2, tl_, tm_, tct)
+    g_lam, g_mu = stencil.theta_coef_grads(t2, tct, tu)
     scale = np.abs(np.asarray(out)).max()
-    np.testing.assert_allclose(f.detach().numpy(), np.asarray(out), rtol=0,
+    np.testing.assert_allclose(f.numpy(), np.asarray(out), rtol=0,
                                atol=1e-12 * scale)
-    np.testing.assert_allclose(tu.grad.numpy(), np.asarray(gu), rtol=0,
+    np.testing.assert_allclose(g_u.numpy(), np.asarray(gu), rtol=0,
                                atol=1e-12 * np.abs(np.asarray(gu)).max())
-    np.testing.assert_allclose(tl_.grad.numpy(), np.asarray(gl), rtol=1e-12)
-    np.testing.assert_allclose(tm_.grad.numpy(), np.asarray(gm), rtol=1e-12)
+    np.testing.assert_allclose(g_lam.numpy(), np.asarray(gl), rtol=1e-12)
+    np.testing.assert_allclose(g_mu.numpy(), np.asarray(gm), rtol=1e-12)
 
 
 def test_theta_sweep_gradcheck():
-    """Finite differences of ThetaSweep in float64 (torch.autograd.gradcheck
-    defaults: eps 1e-6, atol 1e-5, rtol 1e-3)."""
-    _, _, t2, shape = _grid_tables((3, 2, 2))
-    u = torch.tensor(_rand((2, 3) + shape, seed=7), requires_grad=True)
+    """Finite differences of the stencil forward's solve in float64
+    (torch.autograd.gradcheck defaults: eps 1e-6, atol 1e-5, rtol 1e-3),
+    whose backward takes the gradients in λ and μ from theta_coef_grads:
+    two chains (theta_sweep_batched) and one (theta_sweep). The Jacobian in
+    (λ, μ), with f fixed, is checked entry by entry; the one in f (a CG
+    solve for each of its entries) along random directions (fast mode)."""
+    fwd = forward.build_forward(meshgen.hex_beam(3, 2, 2), dtype=F64,
+                                device="cpu", cg_tol=1e-14, cg_maxiter=500)
+    assert isinstance(fwd, forward.StencilForwardProblem)
+    f = torch.as_tensor(_rand((2, 3) + fwd.node_shape, seed=7), dtype=F64)
     lam = torch.tensor([1.2, 0.8], dtype=F64, requires_grad=True)
     mu = torch.tensor([0.6, 1.1], dtype=F64, requires_grad=True)
+    for b in (2, 1):
+        lm = (lam[:b].detach().requires_grad_(),
+              mu[:b].detach().requires_grad_())
+        assert torch.autograd.gradcheck(
+            lambda a, m: fwd.solve(a, m, f[:b]), lm)
     assert torch.autograd.gradcheck(
-        lambda a, b, x: stencil.ThetaSweep.apply(a, b, x, t2), (lam, mu, u))
-    one = (lam[:1].detach().requires_grad_(), mu[:1].detach().requires_grad_(),
-           u[:1].detach().requires_grad_())
-    assert torch.autograd.gradcheck(
-        lambda a, b, x: stencil.ThetaSweep.apply(a, b, x, t2), one)
+        lambda g: fwd.solve(lam.detach(), mu.detach(), g),
+        (f.clone().requires_grad_(),), fast_mode=True)
 
 
 def test_theta_sweep_slabs_compose():
