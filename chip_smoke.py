@@ -44,8 +44,12 @@ Phases, each of which raises on failure:
      K (or [K_λ | K_μ]) assembled as CSR, checked against the kernel;
   6. the linear main path: solve_linear_statics(hex_beam(70, 70, 70),
      device="cuda") in float32 with float64 certification (1,073,733 DOF):
-     operator "stencil", converged, certified residual <= 1e-6, and at
-     least one kernel launch per CG iteration;
+     operator "stencil", converged, certified residual <= 1e-6, at least
+     one float32 stencil_sweep launch per CG iteration (base and
+     corrections) and no float64 one (the certification's residual is
+     read on the host, hostops.masked_f64_apply); prints the
+     certification's split: host twin set-up, host sweeps, inner CG on
+     the card and the copies between them;
   7. an independent check of that answer: the float64 residual with the
      structured operator (which does not use the kernel), and the support
      reactions balancing the loads;
@@ -145,8 +149,9 @@ Phases, each of which raises on failure:
      one float32 launch per inner iteration and one float64 launch per
      cycle; its warm seconds against a plain float32 pcg to 1e-6 and
      phase 6's base CG and certification; and phase 6's certified u
-     checked by hostops.masked_f64_apply (no kernel) to 1.2e-6. No plain
-     *_reference sweep runs on a CUDA tensor in it.
+     checked by hostops.masked_f64_apply (no kernel) to 1.2e-6, and that
+     reading equal to phase 6's certified residual to 1e-8 (absolute). No
+     plain *_reference sweep runs on a CUDA tensor in it.
  25. (run after phase 24) the host runtime (native.py over
      csrc/stanfem.cpp, OpenMP) on the 70^3 beam as meshgen builds it (no
      results stored) against the port's Python bodies,
@@ -216,6 +221,7 @@ cross between the processes.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -301,6 +307,9 @@ PROC_ROWS = 2
 # CERT_HOST_TOL (tests/test_df32.py:112), the host and device residuals
 # to CERT_AGREE of each other (both float64).
 CERT_TOL, CERT_HOST_TOL, CERT_AGREE = 1e-6, 1.2e-6, 1e-3
+# Phase 6's certified residual is the host twin's reading of its u: phase
+# 24's reading of the same u by the same twin agrees to CERT_SAME.
+CERT_SAME = 1e-8
 # The host runtime (phase 25): the native float64 interior sweep and the
 # numpy one sum the same products in other orders.
 HOST_SWEEP_RTOL = 1e-13
@@ -1259,8 +1268,6 @@ def certified_phase(model, lin, timer, op32, card) -> int:
     base CG and certification; then phase 6's certified u checked by the
     same twin (hostops.masked_f64_apply). Returns its stencil_sweep
     launches."""
-    import collections
-
     from stan_tpu_torch.fem import hostops, stencil
     from stan_tpu_torch.solvers import cg
 
@@ -1333,7 +1340,8 @@ def certified_phase(model, lin, timer, op32, card) -> int:
     print(f"[{card}] certified phase: set-up {setup_s:.3f} s, host twin "
           f"(hostops.masked_f64_apply: exact tables) {twin_s:.3f} s, one "
           f"host sweep (apply_numpy) {host_s:.3f} s; phase 6's u_certified "
-          f"through the host twin: relative residual {lib:.3e}; "
+          f"through the host twin: relative residual {lib!r} (phase 6's "
+          f"certified residual {lin.true_residual!r}); "
           f"{time.perf_counter() - t_phase:.2f} s in all")
     require(cert.converged, "the certified solve did not converge")
     require(cert.rel_residual <= CERT_TOL,
@@ -1349,6 +1357,9 @@ def certified_phase(model, lin, timer, op32, card) -> int:
             f"{f64} float64 launches < 2 x {cert.cycles} cycles")
     require(lib <= CERT_HOST_TOL,
             f"phase 6's certified u: host float64 residual {lib}")
+    require(abs(lib - lin.true_residual) <= CERT_SAME,
+            f"phase 6's certified residual {lin.true_residual} is not the "
+            f"host reading of its u, {lib}")
     return stencil.launches
 
 
@@ -2734,9 +2745,11 @@ def main() -> int:
     # -- the linear main path ---------------------------------------------
     model = meshgen.hex_beam(N, N, N)
     timer = PhaseTimer(verbose=False)
+    by_dtype = collections.Counter()
     reset_launches()
     t0 = time.perf_counter()
-    res = solve_linear_statics(model, device="cuda", timer=timer)
+    with sweeps_by_dtype(by_dtype):
+        res = solve_linear_statics(model, device="cuda", timer=timer)
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     launches = stencil.launches
@@ -2758,6 +2771,22 @@ def main() -> int:
             f"certified residual {res.true_residual}")
     require(launches >= res.iters,
             f"{launches} kernel launches < {res.iters} CG iterations")
+    # The certification reads its float64 residual on the host: no float64
+    # sweep runs in the solve, a float32 one in each CG iteration.
+    f32, f64 = by_dtype[torch.float32], by_dtype[torch.float64]
+    cert = next(r for r in timer.records
+                if r["phase"] == "Certify (f64 refinement)")
+    print(f"[{card}] certification split: " + json.dumps({
+        "seconds": cert["seconds"], "host_twin_setup_s": cert["twin_s"],
+        "host_sweeps_s": cert["sweep_s"], "inner_cg_s": cert["inner_s"],
+        "copies_s": cert["copy_s"], "cycles": res.refine_cycles,
+        "inner_iters": res.refine_iters,
+        "stencil_sweep_f32_launches": f32,
+        "stencil_sweep_f64_launches": f64}))
+    require(f64 == 0, f"{f64} float64 stencil_sweep launches in the solve")
+    require(f32 >= res.iters + res.refine_iters,
+            f"{f32} float32 launches < {res.iters} + {res.refine_iters} "
+            f"iterations")
     require(res.u.shape == (model.nnode, 3) and np.isfinite(res.u).all(),
             "displacements not finite or misshapen")
     require(res.stress.shape == (model.nelem, 8, 6)

@@ -8,10 +8,14 @@ parallel/sharded_stencil.py) and then the sharded general operator
 CUDA sweep) on a uniform-material structured HEX8 grid, then the
 structured slice-gather operator, then the general gather/scatter
 operator. All act on the same masked system. A solve below float64 is
-certified on one device: the true float64 residual is computed with the
-same operator family built in float64 on the same device (the stencil for
-a sharded stencil solve, the general operator for a sharded general one),
-and mixed-precision refinement runs until the configured tolerance holds.
+certified as the reference certifies it: the true float64 residual is read
+on the host by the operator's float64 twin (fem/hostops.masked_f64_apply:
+exact tables and the native sweep for the stencil, numpy for the
+structured and general operators), independent of the device code, and
+mixed-precision refinement runs until the configured tolerance holds,
+with x and the residual in float64 on the host and each correction solved
+on the device (a sharded stencil solve on its single-device stencil twin,
+a sharded general one on the general operator).
 
 The domain width: on CUDA, n_domain is clamped to the visible cards, and
 None means all of them for a model of AUTO_SHARD_MIN_NNODE nodes or more
@@ -21,27 +25,28 @@ them all) and None means 1. After distributed.initialize() with several
 processes the same rule counts the global devices, and the sharded solve's
 mesh is device_mesh over them, as the reference's is over jax.devices():
 every process runs the solve, each on its own slabs, and gets the whole u,
-which it certifies on its own device (the same work on each, and the same
-answer).
+which it certifies on its own host and device (the same work on each, and
+the same answer).
 
 The direct solvers (Cholesky, LU) dispatch on size as the reference does:
 up to 6000 DOF the masked K is assembled dense and factored on the device
 (solvers/direct.py); above it the banded float64 factorisation runs on the
 host (solvers/banded.py), as in the reference. Both report the true
-float64 residual, from the general operator built in float64 on the
-device. Stress recovery runs on the general operator.
+float64 residual, read on the host by the general operator's twin
+(hostops.general_apply_np). Stress recovery runs on the general operator.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from stan_tpu_torch.core.model import FEModel
-from stan_tpu_torch.fem import assembly, kernels
+from stan_tpu_torch.fem import assembly, hostops, kernels
 from stan_tpu_torch.fem import stencil as stencil_mod
 from stan_tpu_torch.fem import structured as structured_mod
 from stan_tpu_torch.fem.operator import (StiffnessOperator, build_operator,
@@ -197,29 +202,67 @@ def _solve_sharded(kind, payload, model, op, f, n, tol, maxiter):
     return res, torch.as_tensor(u, dtype=torch.float64, device=op.device)
 
 
-def _f64_twin(model, kind, device):
-    """The same operator family built in float64 on the same device: the
-    true-residual operator of the certification."""
-    if kind == "stencil":
-        return stencil_mod.build_stencil_operator(
-            model, dtype=torch.float64, device=device)
-    if kind == "structured":
-        return structured_mod.build_structured_operator(
-            model, dtype=torch.float64, device=device)
-    return build_operator(model.coords, model.conn, model.elem_d_matrices(),
-                          model.fix_mask(), model.formulation(),
-                          dtype=torch.float64, device=device)
+def _true_residual(model, u64) -> float:
+    """||b - A u|| / ||b|| in float64, A the masked general operator's host
+    twin (fem/hostops.general_apply_np), as the reference reads the banded
+    solve's residual."""
+    A_hi = hostops.general_apply_np(
+        model.coords, model.conn,
+        np.asarray(model.elem_d_matrices(), np.float64),
+        model.formulation(), model.fix_mask())
+    b64 = (1.0 - model.fix_mask()) * np.asarray(model.load_vector(),
+                                                np.float64)
+    r64 = b64 - A_hi(u64.detach().cpu().numpy())
+    return float(np.linalg.norm(r64.ravel())) / max(
+        float(np.linalg.norm(b64.ravel())), 1e-300)
 
 
-def _true_residual(model, u64, device) -> float:
-    """||b - A u|| / ||b|| in float64, A the general masked operator built in
-    float64 on ``device`` (the certification's twin)."""
-    hi = _f64_twin(model, "general", device)
-    b64 = hi.free_mask * torch.as_tensor(model.load_vector(),
-                                         dtype=torch.float64, device=device)
-    bnorm = float(torch.linalg.vector_norm(b64))
-    return float(torch.linalg.vector_norm(b64 - hi.apply(u64))) / max(
-        bnorm, 1e-300)
+def _certify(model, cert_op, grid, u64, loads, dtype, tol, maxiter):
+    """Mixed-precision refinement of the base solve u64 [nnode, 3] under
+    the true float64 residual of cert_op's host twin
+    (hostops.masked_f64_apply), as the reference certifies: x and the
+    residual in float64 on the host, each correction solved in `dtype` on
+    cert_op's device by the same CG as the base solve. Returns (its
+    RefinedResult, u [nnode, 3] float64 on the host, the split of its
+    seconds: twin set-up, host sweeps, inner CG, copies)."""
+    t0 = time.perf_counter()
+    # The structured twin reads the operator's Lame fields, which a float32
+    # operator holds rounded: it reads a float64 copy built on the host.
+    twin = hostops.masked_f64_apply(model, (
+        structured_mod.build_structured_operator(
+            model, dtype=torch.float64, device="cpu")
+        if isinstance(cert_op, structured_mod.StructuredOperator)
+        else cert_op))
+    twin_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x0 = u64.cpu()
+    copies = [time.perf_counter() - t0]
+    b64 = torch.as_tensor(loads, dtype=torch.float64)
+    if grid:
+        b64, x0 = (_to_grid(cert_op.node_shape, v) for v in (b64, x0))
+    b64 = cert_op.free_mask.cpu().to(torch.float64) * b64
+
+    def A_hi(x):
+        return torch.from_numpy(twin(x.numpy()))
+
+    def inner_solve(r, t):
+        t0 = time.perf_counter()
+        r = r.to(cert_op.free_mask.device)
+        copies.append(time.perf_counter() - t0)
+        res = (_pcg_grid(cert_op, r, t, maxiter) if grid
+               else _pcg_flat(cert_op, r, t, maxiter))
+        t0 = time.perf_counter()
+        res = res._replace(u=res.u.cpu())
+        copies.append(time.perf_counter() - t0)
+        return res
+
+    rr = cg_mod.pcg_refined(
+        None, b64, A_hi, tol=tol, maxiter=maxiter, ndof=3 * model.nnode,
+        x0=x0, lo_dtype=dtype, inner_solve=inner_solve)
+    split = {"twin_s": twin_s, "sweep_s": rr.sweep_seconds,
+             "inner_s": rr.inner_seconds - sum(copies[1:]),
+             "copy_s": sum(copies)}
+    return rr, _from_grid(rr.u) if grid else rr.u, split
 
 
 def _solve_direct(model, solver, op, f, timer, certify):
@@ -234,8 +277,7 @@ def _solve_direct(model, solver, op, f, timer, certify):
                        else banded.solve_banded_lu)
             u64 = torch.as_tensor(solve_b(model, model.load_vector()),
                                   dtype=torch.float64, device=device)
-            true_residual = (_true_residual(model, u64, device) if certify
-                             else None)
+            true_residual = _true_residual(model, u64) if certify else None
         return u64.to(dtype), kind, true_residual
     with timer.phase("Assembly (dense)"):
         K = assembly.assemble_dense(
@@ -246,8 +288,7 @@ def _solve_direct(model, solver, op, f, timer, certify):
         solve = (direct.solve_cholesky if solver == "Cholesky"
                  else direct.solve_lu)
         u = solve(K, (op.free_mask * f).reshape(-1)).reshape(model.nnode, 3)
-        true_residual = (_true_residual(model, u.to(torch.float64), device)
-                         if certify else None)
+        true_residual = _true_residual(model, u) if certify else None
     return u, f"dense-{solver.lower()}", true_residual
 
 
@@ -316,14 +357,13 @@ def solve_linear_statics(
                 res.converged
         timer.records[-1]["iters"] = iters
 
-        # Certification runs on one device, as in the reference: a sharded
-        # stencil solve on its single-device stencil twin, a sharded
-        # general one on the general operator.
-        twin = path.removeprefix("sharded-")
+        # Certification, as in the reference: a sharded stencil solve on
+        # its single-device stencil twin, a sharded general one on the
+        # general operator; the float64 residual on the host.
         if n_used > 1:
             sop = (stencil_mod.build_stencil_operator(model, dtype=dtype,
                                                       device=device)
-                   if twin == "stencil" and certify
+                   if path == "sharded-stencil" and certify
                    and dtype != torch.float64 else None)
         true_residual = None
         cert_op = sop if sop is not None else op
@@ -331,32 +371,16 @@ def solve_linear_statics(
                       and not (sop is None and model.nelem > 200_000))
         if needs_cert:
             with timer.phase("Certify (f64 refinement)"):
-                hi = _f64_twin(model, twin, device)
-                loads64 = torch.as_tensor(loads, dtype=torch.float64,
-                                          device=device)
-                if sop is not None:
-                    b64 = hi.free_mask * _to_grid(sop.node_shape, loads64)
-                    x0 = _to_grid(sop.node_shape, u64)
-
-                    def inner_solve(r, t):
-                        return _pcg_grid(cert_op, r, t, maxiter)
-                else:
-                    b64 = hi.free_mask * loads64
-                    x0 = u64
-
-                    def inner_solve(r, t):
-                        return _pcg_flat(cert_op, r, t, maxiter)
-                rr = cg_mod.pcg_refined(
-                    None, b64, hi.apply, tol=tol, maxiter=maxiter,
-                    ndof=3 * model.nnode, x0=x0, lo_dtype=dtype,
-                    inner_solve=inner_solve)
+                rr, u64, split = _certify(model, cert_op, sop is not None,
+                                          u64, loads, dtype, tol, maxiter)
                 true_residual = rr.rel_residual
                 refine_cycles = rr.cycles
                 refine_iters = rr.inner_iters
                 converged = rr.converged
-                u64 = _from_grid(rr.u) if sop is not None else rr.u
-            timer.records[-1]["refine_iters"] = refine_iters
-        u = u64.to(dtype)
+            timer.records[-1].update(
+                refine_iters=refine_iters,
+                **{k: round(v, 4) for k, v in split.items()})
+        u = u64.to(dtype).to(device)
 
     with timer.phase("Stress recovery"):
         eps, sig, R = _recover(op, u)

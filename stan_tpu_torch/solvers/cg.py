@@ -216,10 +216,16 @@ def pcg_refined(
     the JAX package: each cycle retires about 1.5 decades and the product
     of cycles reaches tol.
 
+    x and r live in float64 on b_hi's device, and each correction comes
+    back to it: with b_hi on the host, the loop is the reference's host
+    loop and only the corrections run on the device.
+
     A: low-precision operator (used when inner_solve is None); A_hi: the
-    float64 operator, here the port's own operator built in float64 on the
-    same device; inner_solve: (r_lo, tol) -> CGResult for the corrections;
-    x0: float64 warm start (e.g. the base solve's solution).
+    float64 operator on b_hi's device (analysis/linear.py passes the host
+    twin of fem/hostops.py, independent of the device code); inner_solve:
+    (r_lo, tol) -> CGResult for the corrections, r_lo on b_hi's device
+    (it moves r_lo to its own device); x0: float64 warm start (e.g. the
+    base solve's solution), moved to b_hi's device.
     """
     b64 = b_hi.to(torch.float64)
     bnorm = float(torch.linalg.vector_norm(b64))
@@ -231,7 +237,7 @@ def pcg_refined(
     inner = inner_solve if inner_solve is not None else (
         lambda r, t: pcg(A, r, diag=diag, tol=t, maxiter=maxiter, ndof=ndof))
 
-    x = torch.zeros_like(b64) if x0 is None else x0.to(torch.float64)
+    x = torch.zeros_like(b64) if x0 is None else x0.to(b64)
     total_iters = 0
     rel = math.inf
     solves = 0
@@ -257,7 +263,7 @@ def pcg_refined(
         res = inner(r.to(lo_dtype), t)
         total_iters += res.iters
         solves += 1
-        x = x + res.u.to(torch.float64)
+        x = x + res.u.to(x)
         inner_s += time.perf_counter() - t0
     return RefinedResult(x, solves, rel, total_iters, rel <= tol,
                          sweep_s, inner_s)

@@ -98,6 +98,35 @@ def test_cuda_solve_matches_cpu_float64():
     assert np.isfinite(res.stress).all() and np.isfinite(res.reactions).all()
 
 
+def test_cuda_solve_is_certified_by_the_host_twin(monkeypatch):
+    """The float32 stencil solve's certified residual is the host float64
+    twin's reading of its u_certified, and no float64 sweep runs in it."""
+    from stan_tpu_torch.fem import hostops
+
+    _need_cuda()
+    m = meshgen.hex_beam(8, 5, 4)
+    op = stencil.build_stencil_operator(m, dtype=torch.float32,
+                                        device="cuda")
+    sweep, dtypes = stencil.stencil_sweep, []
+
+    def counted(up, *args):
+        dtypes.append(up.dtype)
+        return sweep(up, *args)
+
+    monkeypatch.setattr(stencil, "stencil_sweep", counted)
+    res = solve_linear_statics(m, device="cuda")
+    assert res.operator == "stencil" and res.converged
+    assert set(dtypes) == {torch.float32}
+    assert len(dtypes) >= res.iters + res.refine_iters
+    twin = hostops.masked_f64_apply(m, op)
+    b = op.free_mask.cpu().double() * op.to_grid(
+        torch.as_tensor(m.load_vector())).cpu()
+    u = op.to_grid(torch.as_tensor(res.u_certified)).numpy()
+    rel = np.linalg.norm(b.numpy() - twin(u)) / np.linalg.norm(b.numpy())
+    assert res.true_residual == pytest.approx(rel, rel=1e-9)
+    assert res.true_residual <= 1e-6
+
+
 def _theta_case(n, kw, dtype, B, seed, sx=None):
     """Unit tables of hex_beam(*n, **kw), random slabs of B chains (of sx
     x-planes if given) with random ghosts, and random coefficients."""
