@@ -165,6 +165,13 @@ Phases, each of which raises on failure:
      runtimes mapped into the process, and phase 6's float32 CG ms per
      iteration again right after the native sweep (phase 6 timed it
      before any had run).
+ 26. (run after phase 23) the port's benchmark, stan_tpu_torch.bench.run(
+     small=True) in this process (n = 12, g = 8; its sampler blocks cut
+     to BENCH_LENGTHS): every block ran and none was skipped, the
+     certified residual <= 1e-6 and equal to its host cross-check to
+     1e-8, each of the three kernels launched; then
+     stan_tpu_torch.calib_large at n = 12 (2 chains, 2 + 2). No plain
+     *_reference sweep runs on a CUDA tensor in it.
 
 --kernels runs phases 1-5 only (build, every kernel against its plain
 version, the timings), prints the kernels line with no launch counts (no
@@ -235,6 +242,8 @@ import time
 import numpy as np
 import torch
 
+from stan_tpu_torch.bench import HBM_BYTES_PER_S, PEAK_FLOPS, card_line
+
 N = 70  # bench.py's beam: 343,000 HEX8 elements, 1,073,733 DOF
 G = 32  # bench.py's calibration grid: 35,937 nodes, 107,811 DOF
 CHAINS = 16
@@ -269,9 +278,6 @@ FLAGS = ((1, 1), (0, 1), (1, 0), (0, 0))
 SYNC_ITERS = 200
 # tests/test_infer.py:227-236 (test_forward_gradient_finite_difference).
 FD_H, FD_REL, FD_ABS = 1e-4, 2e-3, 1e-3
-# H100 SXM data sheet: HBM3 rate, and peak rates outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 FLUSH_BYTES = 256 * 2**20  # > the 50 MB L2
 # The sharded phases: the 70^3 beam widened by one x-plane (NNX = 72, which
 # 2, 3, 4 and 8 divide) on 4 domains; the banded beam on 4 domains (ring)
@@ -313,6 +319,11 @@ CERT_SAME = 1e-8
 # The host runtime (phase 25): the native float64 interior sweep and the
 # numpy one sum the same products in other orders.
 HOST_SWEEP_RTOL = 1e-13
+# The port's benchmark (phase 26) at its small sizes, its sampler blocks cut
+# to BENCH_LENGTHS (warmup, draws per chain); then calib_large at n = 12.
+BENCH_LENGTHS = (4, 4)
+CALIB_LARGE_ARGS = ["--n", "12", "--chains", "2", "--samples", "2",
+                    "--warmup", "2"]
 
 
 # The six tetrahedra of a HEX8 around its corner-0 to corner-6 diagonal, in
@@ -342,14 +353,6 @@ def tet_split(model, elem_type: str = "TET4_G1"):
 def require(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, reps: int) -> float:
@@ -1540,6 +1543,55 @@ def host_runtime_phase(cg_iter_ms, before_ms, card) -> None:
             "the BFS order is not a permutation")
     require(sweep_gap <= HOST_SWEEP_RTOL,
             f"apply_numpy native against numpy: {sweep_gap:.3e}")
+
+
+def bench_phase(card) -> tuple:
+    """Phase 26: the port's benchmark (stan_tpu_torch.bench.run) with its
+    small sizes in this process, then stan_tpu_torch.calib_large at n = 12:
+    every block ran and none was skipped, the certified residual <= 1e-6
+    and equal to its host cross-check to 1e-8, each of the three kernels
+    launched. Returns the phase's launches of (stencil_sweep, theta_sweep,
+    theta_sweep_batched)."""
+    import tempfile
+
+    from stan_tpu_torch import bench, calib_large
+
+    reset_launches()
+    t0 = time.perf_counter()
+    lines = []
+    record, failed = bench.run(small=True, device="cuda",
+                               emit=lines.append, lengths=BENCH_LENGTHS)
+    for line in lines:
+        print(f"[{card}] bench: {line}")
+    blocks = [json.loads(line) for line in lines]
+    require(not failed, f"bench blocks failed: {failed}")
+    skipped = [b["block"] for b in blocks if "skipped" in b]
+    require(not skipped, f"bench blocks skipped: {skipped}")
+    require([b["block"] for b in blocks] == [
+        "headline", "cpu_baseline", "solve_to_tol_1e6", "hmc_1", "hmc_2",
+        "nuts", "chains_scaling"], f"bench blocks {blocks}")
+    cert = record["solve_to_tol_1e6"]["certified"]
+    dev_rel = cert["rel_residual_device_f64"]
+    host_rel = cert["rel_residual_host_f64_crosscheck"]
+    require(cert["converged"] and dev_rel <= CERT_TOL,
+            f"bench: certified residual {dev_rel}")
+    require(abs(host_rel - dev_rel) <= CERT_SAME,
+            f"bench: certified residual {dev_rel} against the host's "
+            f"{host_rel}")
+    totals = {k: sum(c[k] for c in record["launches"].values())
+              for k in bench.KERNELS}
+    print(f"[{card}] bench (small, lengths {BENCH_LENGTHS}): "
+          f"{time.perf_counter() - t0:.1f} s, launches {totals}")
+    require(all(n > 0 for n in totals.values()),
+            f"bench: a kernel was not launched: {totals}")
+    with tempfile.TemporaryDirectory() as tmp:
+        rc = calib_large.main(CALIB_LARGE_ARGS
+                              + ["--runlog", f"{tmp}/runlog.jsonl"])
+    require(rc == 0, f"calib_large exited {rc}")
+    counts = launch_counts()
+    print(f"[{card}] bench + calib_large: {time.perf_counter() - t0:.1f} s, "
+          f"launches {counts}")
+    return counts
 
 
 @contextlib.contextmanager
@@ -2942,6 +2994,11 @@ def main() -> int:
                                              theta0)
         launches += more
         batched_launches += more_batched
+        # -- the port's benchmark and calib_large, small ------------------
+        more = bench_phase(card)
+        launches += more[0]
+        theta_launches += more[1]
+        batched_launches += more[2]
     if args.cli:
         cli_calibration(card)
         cli_nuts_export(card)
