@@ -172,6 +172,16 @@ Phases, each of which raises on failure:
      1e-8, each of the three kernels launched; then
      stan_tpu_torch.calib_large at n = 12 (2 chains, 2 + 2). No plain
      *_reference sweep runs on a CUDA tensor in it.
+ 27. (run after phase 26) the chains-scaling measurement,
+     stan_tpu_torch.chains_scaling.measure at grid 3 (float64, cg_tol
+     1e-8, 4 leapfrog steps, 4 warmup + 4 draws) on a mesh of 8 rows,
+     [cuda:0] * 8 on a one-card host: 1 chain, 8 chains placed
+     (run_hmc(mesh=), the rows in turn) and 8 unplaced, each untimed and
+     timed; its record printed with the card's name and power limit; the
+     placed draws within 1e-9 of max|draw| of the unplaced ones; in each
+     timed run theta_sweep launched where a batch holds one chain (the
+     1-chain run, the placed rows) and theta_sweep_batched only in the
+     unplaced run. No plain *_reference sweep runs on a CUDA tensor in it.
 
 --kernels runs phases 1-5 only (build, every kernel against its plain
 version, the timings), prints the kernels line with no launch counts (no
@@ -324,6 +334,10 @@ HOST_SWEEP_RTOL = 1e-13
 BENCH_LENGTHS = (4, 4)
 CALIB_LARGE_ARGS = ["--n", "12", "--chains", "2", "--samples", "2",
                     "--warmup", "2"]
+# The chains-scaling measurement (phase 27) at grid 3, cut in length: its
+# placed and unplaced float64 draws differ only by the rounding of the
+# solves (batch width moves per-chain CG counts on the card).
+SCALING_GRID, SCALING_LENGTHS, SCALING_RTOL = 3, (4, 4), 1e-9
 
 
 # The six tetrahedra of a HEX8 around its corner-0 to corner-6 diagonal, in
@@ -1590,6 +1604,45 @@ def bench_phase(card) -> tuple:
     require(rc == 0, f"calib_large exited {rc}")
     counts = launch_counts()
     print(f"[{card}] bench + calib_large: {time.perf_counter() - t0:.1f} s, "
+          f"launches {counts}")
+    return counts
+
+
+def chains_scaling_phase(card) -> tuple:
+    """Phase 27: stan_tpu_torch.chains_scaling.measure on the card at grid
+    SCALING_GRID, SCALING_LENGTHS (warmup, draws), its 8 rows on [cuda:0] *
+    8 (the visible cards round-robin on more): the record printed, the
+    placed and unplaced 8-chain draws within SCALING_RTOL of their largest
+    magnitude, theta_sweep in the 1-chain run and in the placed one-chain
+    rows, theta_sweep_batched in the unplaced run alone. Returns the
+    phase's launches of (stencil_sweep, theta_sweep,
+    theta_sweep_batched)."""
+    from stan_tpu_torch import chains_scaling
+
+    reset_launches()
+    t0 = time.perf_counter()
+    warmup, draws = SCALING_LENGTHS
+    rec, runs = chains_scaling.measure(SCALING_GRID, n_samples=draws,
+                                       n_warmup=warmup, device="cuda")
+    print(f"[{card}] chains_scaling: {json.dumps(rec)}")
+    a = runs["8chains_placed"].samples
+    b = runs["8chains_unplaced"].samples
+    gap = float(np.max(np.abs(a - b))) / float(np.max(np.abs(b)))
+    print(f"[{card}] chains_scaling placed vs unplaced draws, float64: "
+          f"max |a - b| / max |b| {gap:.3e} (at most {SCALING_RTOL:g})")
+    require(a.shape == b.shape == (chains_scaling.ROWS, draws, 3)
+            and np.isfinite(a).all() and np.isfinite(b).all(),
+            "chains_scaling: draws not finite or misshapen")
+    require(gap <= SCALING_RTOL, f"chains_scaling: placed draws {gap} off "
+            f"the unplaced ones")
+    for name, counts in rec["launches"].items():
+        single = name != "8chains_unplaced"
+        require(counts["stencil_sweep"] == 0
+                and (counts["theta_sweep"] > 0) == single
+                and (counts["theta_sweep_batched"] > 0) != single,
+                f"chains_scaling {name}: launches {counts}")
+    counts = launch_counts()
+    print(f"[{card}] chains_scaling: {time.perf_counter() - t0:.1f} s, "
           f"launches {counts}")
     return counts
 
@@ -2996,6 +3049,11 @@ def main() -> int:
         batched_launches += more_batched
         # -- the port's benchmark and calib_large, small ------------------
         more = bench_phase(card)
+        launches += more[0]
+        theta_launches += more[1]
+        batched_launches += more[2]
+        # -- the chains-scaling measurement -------------------------------
+        more = chains_scaling_phase(card)
         launches += more[0]
         theta_launches += more[1]
         batched_launches += more[2]

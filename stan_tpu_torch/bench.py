@@ -28,7 +28,11 @@ theta_sweep_batched for more). Each block prints one JSON line with a
                     truth, and the forward and adjoint solves that stopped
                     unconverged;
   nuts              NUTS, 4 chains, 64 warmup + 40 draws, max_depth 6;
-  chains_scaling    not measured with fewer than two cards.
+  chains_scaling    HMC at 1 chain, 8 chains placed over a mesh of 8 rows
+                    (8 entries of this device, or the visible cards
+                    round-robin) and 8 chains unplaced, float64, grid 12:
+                    scaling_efficiency and sharded_vs_vmap
+                    (stan_tpu_torch.chains_scaling).
 
 The last line combines them under bench.py's keys, with the card's name
 and power limit ("device") and each block's launches of the three kernels
@@ -39,8 +43,9 @@ prints its error on its own line; the run goes on with the next block
 and exits 1.
 
 --small keeps bench.py's small sizes (n = 12, g = 8, rows of 1 and 2
-chains, NUTS with 2 chains). --device cpu runs every block on the CPU (the
-kernels' plain versions): a rehearsal, not a measurement of the card.
+chains, NUTS with 2 chains; chains_scaling at grid 3). --device cpu runs
+every block on the CPU (the kernels' plain versions; chains_scaling on a
+mesh of ["cpu"] * 8): a rehearsal, not a measurement of the card.
 
 Run:  python -m stan_tpu_torch.bench [--small] [--device cuda|cpu]
           [--lengths WARMUP DRAWS] [--blocks NAME ...]
@@ -558,12 +563,16 @@ def nuts_block(g: int, small: bool, dev, lengths=None) -> dict:
     }
 
 
-def chains_scaling(dev) -> dict:
-    if dev.type != "cuda":
-        return {"not_measured": "no card: --device cpu"}
-    if torch.cuda.device_count() < 2:
-        return {"not_measured": "one card visible"}
-    return {"not_measured": "the chains-scaling measurement is not ported"}
+def chains_scaling(dev, small: bool, lengths=None) -> dict:
+    """stan_tpu_torch.chains_scaling's record on the bench's device, at
+    SCALING.json's configuration (grid 12, 20 warmup iterations, 12 draws;
+    --small: grid 3, 2 + 2); lengths as for hmc_row."""
+    from stan_tpu_torch import chains_scaling as scaling
+
+    n_warmup, n_samples = lengths or ((2, 2) if small else (20, 12))
+    record, _ = scaling.measure(3 if small else 12, n_samples, n_warmup,
+                                device=dev)
+    return record
 
 
 # ---------------------------------------------------------------------------
@@ -619,8 +628,8 @@ def run(small: bool = False, device="cuda", emit=print, lengths=None,
                   lambda c=c: hmc_row(g, small, c, dev, lengths))
             for c in chain_counts]
     nuts_stats = block("nuts", lambda: nuts_block(g, small, dev, lengths))
-    scaling = block("chains_scaling",
-                    lambda: {"chains_scaling": chains_scaling(dev)})
+    scaling = block("chains_scaling", lambda: {
+        "chains_scaling": chains_scaling(dev, small, lengths)})
 
     value = head.get("value")
     rate = base["iters_per_s"] if base else None

@@ -11,7 +11,8 @@ StencilOperator (its sweep through the plain jnp twin: interpret-mode
 Pallas costs minutes here) to 1e-10; the baseline's K to the one
 tools/cpu_baseline.py builds, run on a small beam, to 1e-12 of max|K|.
 The whole program runs once, --small --device cpu with short sampler
-blocks, in a subprocess.
+blocks, in a subprocess; its chains_scaling block runs the measurement on
+["cpu"] * 8 and must carry every key of tools/chains_scaling.py's record.
 """
 
 import importlib.util
@@ -36,6 +37,7 @@ from stan_tpu.fem import stencil as jstencil
 from stan_tpu_torch import bench, calib_large
 from stan_tpu_torch.core import meshgen
 from stan_tpu_torch.fem import stencil
+from test_torch_chains_scaling import reference_keys
 
 F64 = torch.float64
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -242,7 +244,13 @@ def test_bench_small_runs_end_to_end_on_the_cpu():
                - cert["rel_residual_device_f64"]) <= 1e-8
     assert [r["n_chains"] for r in final["hmc"]["rows"]] == [1, 2]
     assert final["nuts"]["n_chains"] == 2
-    assert final["chains_scaling"] == {"not_measured": "no card: --device cpu"}
+    # The chains-scaling measurement on the CPU mesh, --small: grid 3, 2 + 2.
+    scaling = final["chains_scaling"]
+    assert set(reference_keys()) <= set(scaling)
+    assert (scaling["platform"], scaling["grid"], scaling["n_warmup"],
+            scaling["n_samples"]) == ("cpu-mesh", 3, 2, 2)
+    assert scaling["mesh_devices"] == ["cpu"]
+    assert scaling["placed_vs_unplaced_max_abs"] == 0.0
     # The CPU takes the kernels' plain versions: no launch is counted.
     assert set(final["launches"]) == set(BLOCKS)
     for counts in final["launches"].values():
@@ -268,6 +276,7 @@ def _cheap_blocks(monkeypatch, headline):
     monkeypatch.setattr(bench, "solve_to_tol", lambda n, dev: {"iters": 1})
     monkeypatch.setattr(bench, "hmc_row", lambda *a: {"n_chains": a[2]})
     monkeypatch.setattr(bench, "nuts_block", lambda *a: {"n_chains": 4})
+    monkeypatch.setattr(bench, "chains_scaling", lambda *a: {"grid": 12})
 
 
 def test_a_failed_block_prints_its_error_and_the_run_exits_nonzero(
