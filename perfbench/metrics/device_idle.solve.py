@@ -1,0 +1,7 @@
+"""The device's idle share of the traced slice of whole solves, in %."""
+
+from perfbench import readers
+
+
+def read(run):
+    return readers.idle_percent(run)
