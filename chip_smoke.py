@@ -2384,7 +2384,9 @@ def processes_phase(card, refs, cal_model, obs, theta0) -> tuple:
         same = float(np.abs(out["hmc_samples"] - one.samples).max())
         per_chain = {k: (h["solve_stats"][k], one.solve_stats[k],
                          b.solve_stats[k])
-                     for k in b.solve_stats if "loop" not in k}
+                     for k in b.solve_stats
+                     if k.split("_", 1)[1] in ("solves", "iters",
+                                               "unconverged")}
         print(f"[{card}] rank {r}: placed HMC float64 on {PROC_ROWS} x 1 "
               f"over 2 processes ({CHAINS // PROC_ROWS} chains per rank): "
               f"{h['seconds']:.2f} s, {h['grad_evals']} gradients; max "

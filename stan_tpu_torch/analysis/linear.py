@@ -39,7 +39,6 @@ float64 residual, read on the host by the general operator's twin
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
@@ -217,26 +216,26 @@ def _true_residual(model, u64) -> float:
         float(np.linalg.norm(b64.ravel())), 1e-300)
 
 
-def _certify(model, cert_op, grid, u64, loads, dtype, tol, maxiter):
+def _certify(model, cert_op, grid, u64, loads, dtype, tol, maxiter, timer):
     """Mixed-precision refinement of the base solve u64 [nnode, 3] under
     the true float64 residual of cert_op's host twin
     (hostops.masked_f64_apply), as the reference certifies: x and the
     residual in float64 on the host, each correction solved in `dtype` on
     cert_op's device by the same CG as the base solve. Returns (its
-    RefinedResult, u [nnode, 3] float64 on the host, the split of its
-    seconds: twin set-up, host sweeps, inner CG, copies)."""
-    t0 = time.perf_counter()
+    RefinedResult, u [nnode, 3] float64 on the host). The open phase of
+    `timer` gets the parts of its seconds: twin set-up (twin_s), inner CG
+    (inner_s), copies (copy_s); the host sweeps are the RefinedResult's
+    sweep_seconds."""
     # The structured twin reads the operator's Lame fields, which a float32
     # operator holds rounded: it reads a float64 copy built on the host.
-    twin = hostops.masked_f64_apply(model, (
-        structured_mod.build_structured_operator(
-            model, dtype=torch.float64, device="cpu")
-        if isinstance(cert_op, structured_mod.StructuredOperator)
-        else cert_op))
-    twin_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    x0 = u64.cpu()
-    copies = [time.perf_counter() - t0]
+    with timer.part("certify.twin", "twin_s"):
+        twin = hostops.masked_f64_apply(model, (
+            structured_mod.build_structured_operator(
+                model, dtype=torch.float64, device="cpu")
+            if isinstance(cert_op, structured_mod.StructuredOperator)
+            else cert_op))
+    with timer.part("certify.copy", "copy_s"):
+        x0 = u64.cpu()
     b64 = torch.as_tensor(loads, dtype=torch.float64)
     if grid:
         b64, x0 = (_to_grid(cert_op.node_shape, v) for v in (b64, x0))
@@ -246,23 +245,18 @@ def _certify(model, cert_op, grid, u64, loads, dtype, tol, maxiter):
         return torch.from_numpy(twin(x.numpy()))
 
     def inner_solve(r, t):
-        t0 = time.perf_counter()
-        r = r.to(cert_op.free_mask.device)
-        copies.append(time.perf_counter() - t0)
-        res = (_pcg_grid(cert_op, r, t, maxiter) if grid
-               else _pcg_flat(cert_op, r, t, maxiter))
-        t0 = time.perf_counter()
-        res = res._replace(u=res.u.cpu())
-        copies.append(time.perf_counter() - t0)
-        return res
+        with timer.part("certify.copy", "copy_s"):
+            r = r.to(cert_op.free_mask.device)
+        with timer.part("certify.inner_cg", "inner_s"):
+            res = (_pcg_grid(cert_op, r, t, maxiter) if grid
+                   else _pcg_flat(cert_op, r, t, maxiter))
+        with timer.part("certify.copy", "copy_s"):
+            return res._replace(u=res.u.cpu())
 
     rr = cg_mod.pcg_refined(
         None, b64, A_hi, tol=tol, maxiter=maxiter, ndof=3 * model.nnode,
         x0=x0, lo_dtype=dtype, inner_solve=inner_solve)
-    split = {"twin_s": twin_s, "sweep_s": rr.sweep_seconds,
-             "inner_s": rr.inner_seconds - sum(copies[1:]),
-             "copy_s": sum(copies)}
-    return rr, _from_grid(rr.u) if grid else rr.u, split
+    return rr, _from_grid(rr.u) if grid else rr.u
 
 
 def _solve_direct(model, solver, op, f, timer, certify):
@@ -327,13 +321,16 @@ def solve_linear_statics(
     with timer.phase("Operator setup"):
         fix = model.fix_mask()
         loads = model.load_vector()
-        op = build_operator(model.coords, model.conn, model.elem_d_matrices(),
-                            fix, form, dtype=dtype, device=device)
+        with timer.part("setup.general_operator", "general_s"):
+            op = build_operator(model.coords, model.conn,
+                                model.elem_d_matrices(), fix, form,
+                                dtype=dtype, device=device)
         f = torch.as_tensor(loads, dtype=dtype, device=device)
         n_used = 1
         if solver == "CG":
-            path, sop, n_used = _pick_cg_path(model, dtype, device,
-                                              use_structured, n_domain)
+            with timer.part("setup.cg_operator", "grid_s"):
+                path, sop, n_used = _pick_cg_path(model, dtype, device,
+                                                  use_structured, n_domain)
             kind = path if n_used == 1 else f"{path}x{n_used}"
 
     refine_cycles = refine_iters = 0
@@ -355,7 +352,8 @@ def solve_linear_statics(
                 u64 = res.u.to(torch.float64)
             iters, residual, converged = res.iters, res.residual, \
                 res.converged
-        timer.records[-1]["iters"] = iters
+        timer.records[-1].update(iters=iters, cg_s=res.wall_ns * 1e-9,
+                                 wait_s=res.wait_ns * 1e-9)
 
         # Certification, as in the reference: a sharded stencil solve on
         # its single-device stencil twin, a sharded general one on the
@@ -371,15 +369,14 @@ def solve_linear_statics(
                       and not (sop is None and model.nelem > 200_000))
         if needs_cert:
             with timer.phase("Certify (f64 refinement)"):
-                rr, u64, split = _certify(model, cert_op, sop is not None,
-                                          u64, loads, dtype, tol, maxiter)
+                rr, u64 = _certify(model, cert_op, sop is not None, u64,
+                                   loads, dtype, tol, maxiter, timer)
                 true_residual = rr.rel_residual
                 refine_cycles = rr.cycles
                 refine_iters = rr.inner_iters
                 converged = rr.converged
-            timer.records[-1].update(
-                refine_iters=refine_iters,
-                **{k: round(v, 4) for k, v in split.items()})
+            timer.records[-1].update(refine_iters=refine_iters,
+                                     sweep_s=rr.sweep_seconds)
         u = u64.to(dtype).to(device)
 
     with timer.phase("Stress recovery"):

@@ -29,8 +29,10 @@ Gradients flow through each solve implicitly, as jax.lax.custom_linear_solve
 (symmetric=True) gives them in the reference: a torch.autograd.Function
 whose backward is one more chain-batched PCG solve with the same SPD
 operator on the masked cotangent (an adjoint solve), not CG unrolled.
-Every solve records its iterations and convergence in the problem's
-SolveStats.
+Every solve records its iterations, convergence and host time in the
+problem's SolveStats, and runs in the span "forward.solve" or
+"forward.adjoint" (utils/timing.span: on the profiler's timeline while one
+records).
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from stan_tpu_torch.parallel import distributed
 from stan_tpu_torch.parallel.distributed import DeviceMesh, Slabs
 from stan_tpu_torch.parallel.sharded_stencil import halo_pad_rows
 from stan_tpu_torch.solvers import cg as cg_mod
+from stan_tpu_torch.utils.timing import span
 
 
 def _default_infer_maxiter(nnode: int) -> int:
@@ -96,7 +99,12 @@ class SolveStats:
     one SolveStats: each row solves its own block of chains, so the
     per-chain counts (solves, iterations, unconverged) are those of the
     same chains without a mesh, and ``*_loop_iters`` sums the rows'
-    loops."""
+    loops.
+
+    ``*_calls`` counts the batched pcg calls, ``*_ns`` their host time and
+    ``*_wait_ns`` the part of it blocked in the host reads of the norms
+    (CGResult.wall_ns, wait_ns); on a mesh they sum the rows' calls too. All
+    stay integers, so SummedSolveStats sums them exactly."""
 
     forward_solves: int = 0
     forward_iters: int = 0
@@ -106,13 +114,20 @@ class SolveStats:
     adjoint_iters: int = 0
     adjoint_unconverged: int = 0
     adjoint_loop_iters: int = 0
+    forward_calls: int = 0
+    adjoint_calls: int = 0
+    forward_ns: int = 0
+    adjoint_ns: int = 0
+    forward_wait_ns: int = 0
+    adjoint_wait_ns: int = 0
 
     def record(self, kind: str, res: cg_mod.CGResult) -> None:
         """Add one chain-batched pcg result under kind "forward" or
         "adjoint"."""
         add = {"solves": len(res.iters), "iters": int(res.iters.sum()),
                "unconverged": int((~res.converged).sum()),
-               "loop_iters": int(res.iters.max())}
+               "loop_iters": int(res.iters.max()), "calls": 1,
+               "ns": res.wall_ns, "wait_ns": res.wait_ns}
         for key, n in add.items():
             name = f"{kind}_{key}"
             setattr(self, name, getattr(self, name) + n)
@@ -224,7 +239,8 @@ class _StencilSolve(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, lam, mu, f, prob):
-        res = prob._pcg(lam, mu, prob.free_mask * f)
+        with span("forward.solve"):
+            res = prob._pcg(lam, mu, prob.free_mask * f)
         prob.stats.record("forward", res)
         ctx.save_for_backward(lam, mu, res.u)
         ctx.prob = prob
@@ -235,7 +251,8 @@ class _StencilSolve(torch.autograd.Function):
         lam, mu, u = ctx.saved_tensors
         prob = ctx.prob
         m = prob.free_mask
-        res = prob._pcg(lam, mu, m * ct)
+        with span("forward.adjoint"):
+            res = prob._pcg(lam, mu, m * ct)
         prob.stats.record("adjoint", res)
         w = m * res.u
         g_lam = g_mu = None
@@ -301,7 +318,8 @@ class _GeneralSolve(torch.autograd.Function):
     @staticmethod
     def forward(ctx, D_e, f, prob):
         op = prob.operator_with(D_e)
-        res = prob._pcg(op, op.free_mask * f)
+        with span("forward.solve"):
+            res = prob._pcg(op, op.free_mask * f)
         prob.stats.record("forward", res)
         ctx.save_for_backward(D_e, res.u)
         ctx.prob = prob
@@ -313,7 +331,8 @@ class _GeneralSolve(torch.autograd.Function):
         prob = ctx.prob
         op = prob.operator_with(D_e)
         m = op.free_mask
-        res = prob._pcg(op, m * ct)
+        with span("forward.adjoint"):
+            res = prob._pcg(op, m * ct)
         prob.stats.record("adjoint", res)
         w = m * res.u
         g_D = None
@@ -389,7 +408,8 @@ class _FieldSolve(torch.autograd.Function):
     @staticmethod
     def forward(ctx, lam_e, mu_e, f, prob):
         op = prob.operator_with(lam_e, mu_e)
-        res = prob._pcg(op, (op.free_mask * f).contiguous())
+        with span("forward.solve"):
+            res = prob._pcg(op, (op.free_mask * f).contiguous())
         prob.stats.record("forward", res)
         ctx.save_for_backward(lam_e, mu_e, res.u)
         ctx.prob = prob
@@ -401,7 +421,8 @@ class _FieldSolve(torch.autograd.Function):
         prob = ctx.prob
         op = prob.operator_with(lam_e, mu_e)
         m = op.free_mask
-        res = prob._pcg(op, (m * ct).contiguous())
+        with span("forward.adjoint"):
+            res = prob._pcg(op, (m * ct).contiguous())
         prob.stats.record("adjoint", res)
         w = m * res.u
         g_lam = g_mu = None
@@ -522,7 +543,9 @@ class ShardedStencilForwardProblem:
         """u of every chain for (λ, μ, load scale) [C] each, recorded in
         stats."""
         sl = self._slabs
-        res = self._pcg(lam, mu, sl["m"] * (self._per_chain(s) * sl["f0"]))
+        with span("forward.solve"):
+            res = self._pcg(lam, mu,
+                            sl["m"] * (self._per_chain(s) * sl["f0"]))
         self.stats.record("forward", res)
         return res.u
 
@@ -532,7 +555,8 @@ class ShardedStencilForwardProblem:
         w_obs, y_obs, sig2 = obs
         m = self._slabs["m"]
         ct = self._per_chain(-g_v / sig2) * (w_obs * (u - y_obs))
-        res = self._pcg(lam, mu, m * ct)
+        with span("forward.adjoint"):
+            res = self._pcg(lam, mu, m * ct)
         self.stats.record("adjoint", res)
         w = m * res.u
         one, nil = torch.ones_like(lam), torch.zeros_like(lam)

@@ -30,6 +30,16 @@ run mask of a batched solve) is taken on each process from dot's values,
 so dot must return the same bits on every process (Slabs.dot does), and
 b.device must be a device of this process (Slabs.device, the mesh's
 home); then every process stops at the same iteration.
+
+Spans and counters (utils/timing.span, on the profiler's timeline only
+while one records): every pcg call is the span "cg.pcg", and its result
+carries the call's host nanoseconds (``wall_ns``; the call ends on a norm
+read, which waits for the device, so this holds the device work it queued)
+and those spent blocked in its host reads of the norms (``wait_ns``); their
+difference is the host's own time, dispatch included. Iterations are
+counted, not spanned. pcg_certified's float64 residuals are
+"certified.residual"; pcg_refined's float64 sweeps "certify.sweep" and its
+corrections "certify.inner".
 """
 
 from __future__ import annotations
@@ -41,6 +51,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from stan_tpu_torch.utils.timing import span
+
 
 class CGResult(NamedTuple):
     """One solve's result; with batched=True, iters, residual, converged and
@@ -51,6 +63,22 @@ class CGResult(NamedTuple):
     residual: float  # final ||r||
     converged: bool
     diverged: bool = False  # NaN / blow-up guard tripped
+    wall_ns: int = 0  # host time of the call (module docstring)
+    wait_ns: int = 0  # of it, blocked in the host reads of the norms
+
+
+class _Reads:
+    """Host reads of norms on the device by `to_host` (each waits for the
+    device), and the nanoseconds spent blocked in them."""
+
+    def __init__(self, to_host):
+        self.to_host, self.ns = to_host, 0
+
+    def __call__(self, norm: torch.Tensor):
+        t = time.perf_counter_ns()
+        value = self.to_host(norm)
+        self.ns += time.perf_counter_ns() - t
+        return value
 
 
 def pcg(
@@ -76,8 +104,15 @@ def pcg(
     batched (default: torch sums over the tensor, or over each chain's
     elements).
     """
-    if batched:
-        return _pcg_batched(A, b, diag, tol, maxiter, ndof, x0, dot)
+    t0 = time.perf_counter_ns()
+    with span("cg.pcg"):
+        res = (_pcg_batched if batched else _pcg_one)(A, b, diag, tol,
+                                                      maxiter, ndof, x0, dot)
+    return res._replace(wall_ns=time.perf_counter_ns() - t0)
+
+
+def _pcg_one(A, b, diag, tol, maxiter, ndof, x0, dot) -> CGResult:
+    """pcg of one system; wait_ns set, wall_ns left to pcg."""
     if dot is None:
         def dot(u, v):
             return torch.sum(u * v)
@@ -95,14 +130,15 @@ def pcg(
     p = z
     rz = dot(r, z)
     tiny = torch.finfo(b.dtype).tiny
-    bnorm = max(float(torch.sqrt(dot(b, b))), tiny)
+    read = _Reads(float)
+    bnorm = max(read(torch.sqrt(dot(b, b))), tiny)
     threshold = tol * bnorm
     blowup = 1.0e8 * bnorm
 
     def bad(rnorm):
         return not math.isfinite(rnorm) or rnorm > blowup
 
-    rnorm = float(torch.sqrt(dot(r, r)))
+    rnorm = read(torch.sqrt(dot(r, r)))
     k = 0
     while rnorm > threshold and k < maxiter and not bad(rnorm):
         Ap = A(p)
@@ -115,9 +151,10 @@ def pcg(
         p = z + beta * p
         rz = rz_n
         k += 1
-        rnorm = float(torch.sqrt(dot(r, r)))  # the per-iteration sync
+        rnorm = read(torch.sqrt(dot(r, r)))  # the per-iteration sync
     return CGResult(u=x, iters=k, residual=rnorm,
-                    converged=rnorm <= threshold, diverged=bad(rnorm))
+                    converged=rnorm <= threshold, diverged=bad(rnorm),
+                    wait_ns=read.ns)
 
 
 def _pcg_batched(A, b, diag, tol, maxiter, ndof, x0, dot) -> CGResult:
@@ -144,8 +181,9 @@ def _pcg_batched(A, b, diag, tol, maxiter, ndof, x0, dot) -> CGResult:
     p = z
     rz = dot(r, z)
     tiny = torch.finfo(b.dtype).tiny
-    bnorm, rnorm = torch.stack([torch.sqrt(dot(b, b)),
-                                torch.sqrt(dot(r, r))]).tolist()
+    read = _Reads(torch.Tensor.tolist)
+    bnorm, rnorm = read(torch.stack([torch.sqrt(dot(b, b)),
+                                     torch.sqrt(dot(r, r))]))
     threshold = [tol * max(v, tiny) for v in bnorm]
     blowup = [1.0e8 * max(v, tiny) for v in bnorm]
 
@@ -171,13 +209,13 @@ def _pcg_batched(A, b, diag, tol, maxiter, ndof, x0, dot) -> CGResult:
         p = torch.where(wide_run, z + (rz_n / rz).view(wide) * p, p)
         r = torch.where(wide_run, r_n, r)
         rz = torch.where(run, rz_n, rz)
-        rnorm = torch.sqrt(dot(r, r)).tolist()  # the per-iteration sync
+        rnorm = read(torch.sqrt(dot(r, r)))  # the per-iteration sync
         k = [k[c] + go[c] for c in range(B)]
         go = going()
     return CGResult(
         u=x, iters=np.array(k), residual=np.array(rnorm),
         converged=np.array([rnorm[c] <= threshold[c] for c in range(B)]),
-        diverged=np.array([bad(c) for c in range(B)]))
+        diverged=np.array([bad(c) for c in range(B)]), wait_ns=read.ns)
 
 
 class RefinedResult(NamedTuple):
@@ -245,8 +283,9 @@ def pcg_refined(
     inner_s = 0.0
     for _ in range(max_cycles + 1):
         t0 = time.perf_counter()
-        r = b64 - A_hi(x)
-        new_rel = float(torch.linalg.vector_norm(r)) / bnorm
+        with span("certify.sweep"):
+            r = b64 - A_hi(x)
+            new_rel = float(torch.linalg.vector_norm(r)) / bnorm
         sweep_s += time.perf_counter() - t0
         if new_rel <= tol:
             return RefinedResult(x, solves, new_rel, total_iters, True,
@@ -260,10 +299,11 @@ def pcg_refined(
         t = inner_tol if inner_tol is not None else min(
             max(0.3 * tol / new_rel, floor), 3.0e-2)
         t0 = time.perf_counter()
-        res = inner(r.to(lo_dtype), t)
-        total_iters += res.iters
-        solves += 1
-        x = x + res.u.to(x)
+        with span("certify.inner"):
+            res = inner(r.to(lo_dtype), t)
+            total_iters += res.iters
+            solves += 1
+            x = x + res.u.to(x)
         inner_s += time.perf_counter() - t0
     return RefinedResult(x, solves, rel, total_iters, rel <= tol,
                          sweep_s, inner_s)
@@ -339,8 +379,9 @@ def pcg_certified(
             res = pcg(A, r.to(lo_dtype), diag=diag, tol=t, maxiter=maxiter,
                       ndof=ndof)
             x = x + res.u.to(torch.float64)
-            r = b64 - hi_apply(x)
-            prev_rel, rel = rel, float(torch.linalg.vector_norm(r)) / bnorm
+            with span("certified.residual"):
+                r = b64 - hi_apply(x)
+                prev_rel, rel = rel, float(torch.linalg.vector_norm(r)) / bnorm
             cycles += 1
             iters += res.iters
         return x, rel, cycles, iters
