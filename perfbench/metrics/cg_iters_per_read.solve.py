@@ -1,0 +1,13 @@
+"""Base CG iterations per host read of the norms: iters / reads summed
+over the program's "Linear solve (CG, ...)" records (CGResult.reads). Just under 1
+on a loop that reads every iteration (and twice before it); about the
+block length on one that reads once per replayed block."""
+
+from perfbench import phase_keys
+
+
+def read(run):
+    sums = phase_keys.totals(run, "Linear solve (CG", "iters", "reads")
+    if sums is None or not sums[1]:
+        return None
+    return sums[0] / sums[1]

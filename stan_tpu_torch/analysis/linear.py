@@ -353,7 +353,8 @@ def solve_linear_statics(
             iters, residual, converged = res.iters, res.residual, \
                 res.converged
         timer.records[-1].update(iters=iters, cg_s=res.wall_ns * 1e-9,
-                                 wait_s=res.wait_ns * 1e-9)
+                                 wait_s=res.wait_ns * 1e-9, reads=res.reads,
+                                 frozen=res.frozen)
 
         # Certification, as in the reference: a sharded stencil solve on
         # its single-device stencil twin, a sharded general one on the

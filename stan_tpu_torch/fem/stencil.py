@@ -64,11 +64,35 @@ _INTERIOR = ("F", "F", "F")
 
 # Kernel launches on CUDA tensors since the last reset, one count per
 # kernel wrapper: stencil_sweep, theta_sweep, theta_sweep_batched; and the
-# same launches by (wrapper, is_low, is_high), the x-face flags.
+# same launches by (wrapper, is_low, is_high), the x-face flags. A replayed
+# CUDA graph adds the launches it holds (add_launches).
 launches = 0
 theta_launches = 0
 theta_batched_launches = 0
 flag_launches = collections.Counter()
+
+
+def launch_counts() -> collections.Counter:
+    """Every launch counter in one Counter: each wrapper's count under its
+    name, and flag_launches under its own keys."""
+    counts = collections.Counter(flag_launches)
+    counts.update(stencil_sweep=launches, theta_sweep=theta_launches,
+                  theta_sweep_batched=theta_batched_launches)
+    return counts
+
+
+def add_launches(delta: dict, times: int = 1) -> None:
+    """Add times x delta (launch_counts' form) to the counters: the
+    launches of a replayed CUDA graph, whose kernels no wrapper call
+    launches, and (times=-1) the calls that recorded the graph, which
+    launched nothing."""
+    global launches, theta_launches, theta_batched_launches
+    launches += times * delta.get("stencil_sweep", 0)
+    theta_launches += times * delta.get("theta_sweep", 0)
+    theta_batched_launches += times * delta.get("theta_sweep_batched", 0)
+    for key, n in delta.items():
+        if isinstance(key, tuple):
+            flag_launches[key] += times * n
 
 
 def signature_tables(ke: np.ndarray) -> dict:

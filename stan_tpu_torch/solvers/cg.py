@@ -14,6 +14,19 @@ so the stopping test reads ||r|| on the host: one device sync per
 iteration, which keeps the iteration count identical to the reference's.
 Everything else in the iteration stays on the device.
 
+One system on a CUDA device without ``dot`` (every single-process
+unbatched solve) runs the same iteration as a CUDA graph of BLOCK
+iterations instead, on static tensors updated in place, with the stopping
+test on the device: the graph is replayed until the test fails and the
+host reads the stopping state once per replay. From the iteration whose
+test fails, x, the count and the reported norm stay frozen for the rest
+of the block, so the result is the per-iteration loop's to the bit. One
+capture serves every right-hand side, tolerance and cap of the same
+operator callable (compared by identity; a bound method by its object)
+on vectors of the same shape, layout and dtype; the last one is kept, and
+a new key drops it. With ``dot``, or on the CPU, the loop reads every
+iteration.
+
 ``pcg(..., batched=True)`` solves B independent systems at once (HMC
 chains): b carries a leading chain axis, A acts on the whole batch, and
 every reduction and threshold is per chain. It does what JAX's vmapped
@@ -36,22 +49,34 @@ while one records): every pcg call is the span "cg.pcg", and its result
 carries the call's host nanoseconds (``wall_ns``; the call ends on a norm
 read, which waits for the device, so this holds the device work it queued)
 and those spent blocked in its host reads of the norms (``wait_ns``); their
-difference is the host's own time, dispatch included. Iterations are
-counted, not spanned. pcg_certified's float64 residuals are
-"certified.residual"; pcg_refined's float64 sweeps "certify.sweep" and its
-corrections "certify.inner".
+difference is the host's own time, dispatch included. ``reads`` counts
+those reads and ``frozen`` the iterations a replayed block ran after the
+stop. Iterations are counted, not spanned; a capture is "cg.capture".
+pcg_certified's float64 residuals are "certified.residual"; pcg_refined's
+float64 sweeps "certify.sweep" and its corrections "certify.inner".
 """
 
 from __future__ import annotations
 
+import inspect
 import math
 import time
+import weakref
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from stan_tpu_torch.fem import stencil
 from stan_tpu_torch.utils.timing import span
+
+# CG iterations per replayed CUDA graph. The host reads the stopping state
+# once per block, and the last block runs on frozen after the stop: on
+# average (BLOCK - 1) / 2 iterations a call of device work, about 2% of the
+# ~375 iterations of a 70^3 load case's correction solve, for one host
+# read and one graph launch per 16 iterations instead of one read and ~35
+# launches per iteration.
+BLOCK = 16
 
 
 class CGResult(NamedTuple):
@@ -65,19 +90,22 @@ class CGResult(NamedTuple):
     diverged: bool = False  # NaN / blow-up guard tripped
     wall_ns: int = 0  # host time of the call (module docstring)
     wait_ns: int = 0  # of it, blocked in the host reads of the norms
+    reads: int = 0  # host reads of the norms (or of a block's state)
+    frozen: int = 0  # iterations run after the stop (replayed blocks)
 
 
 class _Reads:
     """Host reads of norms on the device by `to_host` (each waits for the
-    device), and the nanoseconds spent blocked in them."""
+    device), their number and the nanoseconds spent blocked in them."""
 
     def __init__(self, to_host):
-        self.to_host, self.ns = to_host, 0
+        self.to_host, self.ns, self.n = to_host, 0, 0
 
     def __call__(self, norm: torch.Tensor):
         t = time.perf_counter_ns()
         value = self.to_host(norm)
         self.ns += time.perf_counter_ns() - t
+        self.n += 1
         return value
 
 
@@ -113,6 +141,10 @@ def pcg(
 
 def _pcg_one(A, b, diag, tol, maxiter, ndof, x0, dot) -> CGResult:
     """pcg of one system; wait_ns set, wall_ns left to pcg."""
+    if dot is None and b.device.type == "cuda":
+        with torch.no_grad():
+            return _pcg_blocks(A, b, diag, tol, maxiter, ndof, x0,
+                               lambda *state: _captured(A, *state))
     if dot is None:
         def dot(u, v):
             return torch.sum(u * v)
@@ -154,7 +186,175 @@ def _pcg_one(A, b, diag, tol, maxiter, ndof, x0, dot) -> CGResult:
         rnorm = read(torch.sqrt(dot(r, r)))  # the per-iteration sync
     return CGResult(u=x, iters=k, residual=rnorm,
                     converged=rnorm <= threshold, diverged=bad(rnorm),
-                    wait_ns=read.ns)
+                    wait_ns=read.ns, reads=read.n)
+
+
+def _dot(u, v):
+    return torch.sum(u * v)
+
+
+class _Blocks:
+    """_pcg_one's iteration (dot None) on static tensors updated in place,
+    with its stopping test on the device. `step` runs k iterations; from
+    the one whose test fails, x, the count and the reported norm keep their
+    values (frozen) while the rest of the recurrence runs on unread, and it
+    ends by writing (run, count, norm) to `status` for one host read.
+    `capture` records step as a CUDA graph, and `replay` launches it (or
+    runs step eagerly, uncaptured). The blocks hold no reference to the
+    operator: the caller's A keeps what the graph reads alive.
+
+    x, r and p take the strides of _pcg_one's x, r and z (and inv_diag
+    those of its own), which its elementwise operations keep from one
+    iteration to the next: a reduction's order, hence its bits, follows
+    its operand's layout."""
+
+    def __init__(self, x, r, z, inv_diag, k: int):
+        self.k, self.graph, self.launches = k, None, None
+        self.x, self.r, self.p = (torch.zeros_like(t) for t in (x, r, z))
+        self.inv_diag = (None if inv_diag is None
+                         else torch.zeros_like(inv_diag))
+
+        def scalar(dtype):
+            return torch.zeros((), dtype=dtype, device=r.device)
+
+        self.rz, self.rnorm = scalar(r.dtype), scalar(r.dtype)
+        self.iters, self.maxiter = scalar(torch.int64), scalar(torch.int64)
+        self.run = scalar(torch.bool)
+        self.threshold, self.blowup = (scalar(torch.float64),
+                                       scalar(torch.float64))
+        self.status = torch.zeros(3, dtype=torch.float64, device=r.device)
+
+    def step(self, A) -> None:
+        x, r, p, run = self.x, self.r, self.p, self.run
+        for _ in range(self.k):
+            # _pcg_one's operations in its order; in place where it
+            # rebinds (the same values: IEEE + and * commute).
+            Ap = A(p)
+            alpha = self.rz / _dot(p, Ap)
+            torch.where(run, x + alpha * p, x, out=x)
+            r.sub_(alpha * Ap)
+            z = r if self.inv_diag is None else self.inv_diag * r
+            rz_n = _dot(r, z)
+            beta = rz_n / self.rz
+            p.mul_(beta).add_(z)
+            self.rz.copy_(rz_n)
+            torch.where(run, torch.sqrt(_dot(r, r)), self.rnorm,
+                        out=self.rnorm)
+            self.iters.add_(run)
+            # _pcg_one's test in float64 on the float32 norm: above the
+            # threshold, finite and not past the blow-up, under the cap.
+            # rnorm <= blowup is false for NaN and inf (blowup is
+            # finite), so it holds the finiteness test too.
+            rnorm = self.rnorm.double()
+            torch.logical_and(rnorm > self.threshold, rnorm <= self.blowup,
+                              out=run)
+            run.logical_and_(self.iters < self.maxiter)
+        torch.stack([run.double(), self.iters.double(), self.rnorm.double()],
+                    out=self.status)
+
+    def capture(self, A) -> "_Blocks":
+        """Warm step up on a side stream, then record it as a CUDA graph.
+        The wrapper calls that recorded it launched nothing, so their
+        counts leave fem/stencil's counters and each replay adds them."""
+        device = self.x.device
+        with span("cg.capture"), torch.cuda.device(device):
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                self.step(A)
+                side.synchronize()
+                before = stencil.launch_counts()
+                self.graph = torch.cuda.CUDAGraph()
+                self.graph.capture_begin()
+                try:
+                    self.step(A)
+                finally:
+                    self.graph.capture_end()
+            torch.cuda.current_stream(device).wait_stream(side)
+        self.launches = stencil.launch_counts() - before
+        stencil.add_launches(self.launches, -1)
+        return self
+
+    def replay(self, A) -> None:
+        if self.graph is None:
+            self.step(A)
+        else:
+            self.graph.replay()
+            stencil.add_launches(self.launches)
+
+
+# The last capture: (its key, a weak reference to its operator, _Blocks).
+_last = None
+
+
+def _weak(A):
+    """A reference to A that does not keep it alive, where A allows one."""
+    try:
+        return (weakref.WeakMethod if inspect.ismethod(A) else weakref.ref)(A)
+    except TypeError:  # a builtin takes no weak reference: hold it
+        return lambda: A
+
+
+def _captured(A, *state) -> _Blocks:
+    """Captured blocks for A on tensors like state (x, r, z, inv_diag):
+    the last ones if they match, else captured now."""
+    global _last
+    key = tuple(None if t is None else (t.shape, t.stride(), t.dtype,
+                                        t.device) for t in state)
+    # Bound methods compare equal when they bind the same object (by
+    # identity) to the same function; functions when they are one.
+    if _last is not None and _last[0] == key and _last[1]() == A:
+        return _last[2]
+    _last = None  # the old graph and state go before the new ones come
+    _last = (key, _weak(A), _Blocks(*state, BLOCK).capture(A))
+    return _last[2]
+
+
+def _pcg_blocks(A, b, diag, tol, maxiter, ndof, x0, blocks_for) -> CGResult:
+    """_pcg_one (dot None) in blocks: its set-up, with ||b|| and the first
+    ||r|| read together, then the blocks of blocks_for(x, r, z, inv_diag)
+    replayed until the device's test stops, each followed by one host read
+    of its status. Returns a copy of x: the blocks' state serves the next
+    call."""
+    if maxiter == 0:
+        maxiter = int(ndof if ndof is not None else b.numel())
+    inv_diag = None if diag is None else torch.where(
+        diag != 0, 1.0 / diag, torch.zeros_like(diag))
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b - A(x)
+    z = r if inv_diag is None else inv_diag * r
+    rz = _dot(r, z)
+    read = _Reads(torch.Tensor.tolist)
+    bnorm, rnorm = read(torch.stack([torch.sqrt(_dot(b, b)),
+                                     torch.sqrt(_dot(r, r))]))
+    bnorm = max(bnorm, torch.finfo(b.dtype).tiny)
+    threshold = tol * bnorm
+    blowup = 1.0e8 * bnorm
+    run = (rnorm > threshold and maxiter > 0 and math.isfinite(rnorm)
+           and rnorm <= blowup)
+    k = ran = 0  # iterations counted, and run by the device
+    if run:
+        s = blocks_for(x, r, z, inv_diag)
+        for static, value in ((s.x, x), (s.r, r), (s.p, z), (s.rz, rz),
+                              (s.inv_diag, inv_diag)):
+            if value is not None:
+                static.copy_(value)
+        s.rnorm.fill_(rnorm)
+        s.iters.zero_()
+        s.maxiter.fill_(maxiter)
+        s.threshold.fill_(threshold)
+        s.blowup.fill_(blowup)
+        s.run.fill_(True)
+        while run:
+            s.replay(A)
+            ran += s.k
+            run, k, rnorm = read(s.status)
+        k = int(k)
+        x = s.x.clone()
+    return CGResult(u=x, iters=k, residual=rnorm,
+                    converged=rnorm <= threshold,
+                    diverged=not math.isfinite(rnorm) or rnorm > blowup,
+                    wait_ns=read.ns, reads=read.n, frozen=ran - k)
 
 
 def _pcg_batched(A, b, diag, tol, maxiter, ndof, x0, dot) -> CGResult:
@@ -215,7 +415,8 @@ def _pcg_batched(A, b, diag, tol, maxiter, ndof, x0, dot) -> CGResult:
     return CGResult(
         u=x, iters=np.array(k), residual=np.array(rnorm),
         converged=np.array([rnorm[c] <= threshold[c] for c in range(B)]),
-        diverged=np.array([bad(c) for c in range(B)]), wait_ns=read.ns)
+        diverged=np.array([bad(c) for c in range(B)]), wait_ns=read.ns,
+        reads=read.n)
 
 
 class RefinedResult(NamedTuple):

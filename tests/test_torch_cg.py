@@ -191,3 +191,54 @@ def test_pcg_refined_reaches_f64_target():
     assert cold.converged and cold.cycles >= 1 and cold.inner_iters > 0
     zero = cg.pcg_refined(lo.apply, torch.zeros_like(b64), hi.apply)
     assert zero.converged and zero.cycles == 0
+
+
+def _block_cases():
+    """(A, b, diag, tol, maxiter, x0) of each case the blocked loop must
+    end as the per-iteration loop does."""
+    m = meshgen.hex_beam(4, 3, 3)
+    op = stencil.build_stencil_operator(m, dtype=torch.float32, device="cpu")
+    b = (op.free_mask * op.to_grid(torch.as_tensor(
+        m.load_vector(), dtype=torch.float32))).contiguous()
+    x0 = 1e-4 * torch.as_tensor(np.random.default_rng(3).standard_normal(
+        b.shape), dtype=torch.float32) * op.free_mask
+    d = torch.tensor([1.0, -1.0, 1.0, -1.0], dtype=F64)
+    return {
+        "spd": (op.apply, b, op.diagonal(), 1e-6, 0, None),
+        "maxiter": (op.apply, b, op.diagonal(), 1e-9, 7, None),
+        "zero_rhs": (op.apply, torch.zeros_like(b), op.diagonal(), 1e-6, 0,
+                     None),
+        "x0": (op.apply, b, op.diagonal(), 1e-6, 0, x0),
+        "met_at_start": (op.apply, b, op.diagonal(), 2.0, 0, None),
+        "indefinite": (lambda x: d * x, torch.ones(4, dtype=F64), None, 1e-6,
+                       0, None),
+    }
+
+
+def _bits(t):
+    return t.view(torch.int64 if t.dtype == F64 else torch.int32)
+
+
+@pytest.mark.parametrize("case", sorted(_block_cases()))
+@pytest.mark.parametrize("k", [1, 3, 16])
+def test_blocked_loop_equals_the_per_iteration_loop(case, k):
+    """The CUDA path's loop (k iterations a block, the stopping test on the
+    device, frozen after the stop), run eagerly here, against the loop
+    that reads every iteration: the same count, residual, flags and u to
+    the bit; at most k - 1 frozen iterations and one read a block besides
+    the read before the loop."""
+    A, b, diag, tol, maxiter, x0 = _block_cases()[case]
+    one = cg._pcg_one(A, b, diag, tol, maxiter, None, x0, None)
+    res = cg._pcg_blocks(A, b, diag, tol, maxiter, None, x0,
+                         lambda *state: cg._Blocks(*state, k))
+    assert (res.iters, res.residual, res.converged, res.diverged) == (
+        one.iters, one.residual, one.converged, one.diverged)
+    assert torch.equal(_bits(res.u), _bits(one.u))
+    assert 0 <= res.frozen < k
+    assert res.reads <= -(-res.iters // k) + 1
+    assert one.reads == one.iters + 2 and one.frozen == 0
+    want = {"maxiter": (7, False, False), "zero_rhs": (0, True, False),
+            "met_at_start": (0, True, False),
+            "indefinite": (one.iters, False, True)}.get(
+        case, (one.iters, True, False))
+    assert (res.iters, res.converged, res.diverged) == want

@@ -114,10 +114,13 @@ def test_cuda_solve_is_certified_by_the_host_twin(monkeypatch):
         return sweep(up, *args)
 
     monkeypatch.setattr(stencil, "stencil_sweep", counted)
+    before = stencil.launches
     res = solve_linear_statics(m, device="cuda")
     assert res.operator == "stencil" and res.converged
+    # The wrapper sees the calls outside the CG's CUDA graph and the ones
+    # that recorded it; the counter also counts the graph's replays.
     assert set(dtypes) == {torch.float32}
-    assert len(dtypes) >= res.iters + res.refine_iters
+    assert stencil.launches - before >= res.iters + res.refine_iters
     twin = hostops.masked_f64_apply(m, op)
     b = op.free_mask.cpu().double() * op.to_grid(
         torch.as_tensor(m.load_vector())).cpu()
@@ -713,3 +716,82 @@ def test_certified_solve_on_cuda_matches_cpu():
         assert true_rel <= 1.2e-6
         runs[dev] = res
     assert abs(runs["cuda"].cycles - runs["cpu"].cycles) <= 1
+
+
+def _graph_case(n):
+    """The float32 stencil operator of hex_beam(*n) on the card, its
+    diagonal and its masked tip load."""
+    m = meshgen.hex_beam(*n)
+    op = stencil.build_stencil_operator(m, dtype=torch.float32,
+                                        device="cuda")
+    b = (op.free_mask * op.to_grid(torch.as_tensor(
+        m.load_vector(), dtype=torch.float32, device="cuda"))).contiguous()
+    return op, op.diagonal(), b
+
+
+def _eager_dot(u, v):
+    """The default reduction, passed as dot: pcg then reads every
+    iteration (the loop of the sharded solves)."""
+    return torch.sum(u * v)
+
+
+@pytest.mark.parametrize("n", [(20, 20, 20), (70, 70, 70)])
+def test_graph_cg_equals_the_eager_loop(n):
+    """The CUDA path's replayed blocks against the loop that reads every
+    iteration, on one operator: the same iterations, residual and flags,
+    u to the bit; a replayed solve launches the eager solve's sweeps plus
+    one per frozen iteration."""
+    from stan_tpu_torch.solvers import cg
+
+    _need_cuda()
+    op, diag, b = _graph_case(n)
+    cg.pcg(op.apply, b, diag=diag, tol=1e-6)  # captures
+    before = stencil.launches
+    eager = cg.pcg(op.apply, b, diag=diag, tol=1e-6, dot=_eager_dot)
+    eager_launches = stencil.launches - before
+    before = stencil.launches
+    res = cg.pcg(op.apply, b, diag=diag, tol=1e-6)
+    graph_launches = stencil.launches - before
+    assert eager.converged and eager.iters > cg.BLOCK
+    assert (res.iters, res.residual, res.converged, res.diverged) == (
+        eager.iters, eager.residual, eager.converged, eager.diverged)
+    assert torch.equal(res.u.view(torch.int32), eager.u.view(torch.int32))
+    assert 0 <= res.frozen < cg.BLOCK
+    assert res.reads <= -(-res.iters // cg.BLOCK) + 1
+    assert (eager.reads, eager.frozen) == (eager.iters + 2, 0)
+    assert eager_launches == eager.iters + 1
+    assert graph_launches == eager_launches + res.frozen
+
+
+def test_certified_solve_captures_once(monkeypatch):
+    """pcg_certified twice on one operator: every inner solve of both runs
+    replays the one capture."""
+    from stan_tpu_torch.solvers import cg
+
+    _need_cuda()
+    op, diag, b = _graph_case((12, 6, 6))
+    ex = stencil.build_stencil_operator(meshgen.hex_beam(12, 6, 6),
+                                        dtype=torch.float64, device="cuda")
+    capture, captures = cg._Blocks.capture, []
+
+    def counted(self, A):
+        captures.append(A)
+        return capture(self, A)
+
+    monkeypatch.setattr(cg._Blocks, "capture", counted)
+    runs = [cg.pcg_certified(op.apply, b.double(), ex.apply, diag=diag,
+                             tol=1e-6) for _ in range(2)]
+    assert all(r.converged for r in runs) and runs[0].cycles >= 2
+    assert runs[0].inner_iters == runs[1].inner_iters
+    assert len(captures) == 1
+
+
+def test_pcg_with_dot_takes_the_eager_loop(monkeypatch):
+    from stan_tpu_torch.solvers import cg
+
+    _need_cuda()
+    op, diag, b = _graph_case((12, 6, 6))
+    monkeypatch.setattr(cg._Blocks, "capture", None)  # a capture would fail
+    res = cg.pcg(op.apply, b, diag=diag, tol=1e-6, dot=_eager_dot)
+    assert res.converged and res.frozen == 0
+    assert res.reads == res.iters + 2

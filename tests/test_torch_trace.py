@@ -131,6 +131,8 @@ def test_cg_host_time_and_wait(batched):
     assert np.all(res.converged)
     assert isinstance(res.wall_ns, int) and isinstance(res.wait_ns, int)
     assert 0 < res.wait_ns <= res.wall_ns
+    assert res.reads == np.max(res.iters) + (1 if batched else 2)
+    assert res.frozen == 0
 
 
 def test_stencil_forward_fills_the_solve_stats():
@@ -165,6 +167,8 @@ def test_phase_records_carry_the_parts_and_counters():
     assert 0 < setup["general_s"] + setup["grid_s"] <= setup["seconds"]
     assert base["iters"] == res.iters
     assert 0 < base["wait_s"] <= base["cg_s"] <= base["seconds"]
+    # On the CPU the loop reads ||b||, the first ||r|| and one a step.
+    assert (base["reads"], base["frozen"]) == (res.iters + 2, 0)
     for key in ("twin_s", "sweep_s", "inner_s", "copy_s"):
         assert math.isfinite(cert[key]) and cert[key] >= 0, key
     assert cert["refine_iters"] == res.refine_iters
