@@ -20,7 +20,12 @@ class Base:
 
     variant: "program", or a control or fault put in the program's place
     (perfbench/tools/readings.py, the tests); scale: the beam's cells per
-    axis instead of the configuration's (rehearsals on the CPU)."""
+    axis instead of the configuration's (rehearsals on the CPU).
+
+    Each Driver declares its own rehearsal (perfbench/tests), with no
+    default here: TINY, the cells per axis of its runs on the CPU; SMALL,
+    those of its control on a card; FAULTS, the variants that break its
+    timed path, each of which the check has to find."""
 
     def __init__(self, config, workload, seed, device, spans, *,
                  variant="program", scale=None):

@@ -64,6 +64,9 @@ def _tensor(x, device, dtype=torch.float64):
 
 
 class Driver(Base):
+    TINY, SMALL = (5, 3, 3), (16, 16, 16)
+    FAULTS = ("unchanged", "half", "altered")
+
     def posterior_reference(self, **kw) -> calib.Posterior:
         c = self.cfg
         return calib.Posterior(

@@ -33,6 +33,9 @@ from perfbench.reference import fem
 
 
 class Driver(Base):
+    TINY, SMALL = (6, 4, 4), (24, 24, 24)
+    FAULTS = ("unchanged", "altered")
+
     def setup(self):
         from stan_tpu_torch.analysis import linear
         from stan_tpu_torch.utils.timing import PhaseTimer

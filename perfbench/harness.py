@@ -7,7 +7,8 @@ Everything particular to a cell is data found by name:
   perfbench/workloads/<cell>.json  the cell's configuration, driver, traffic
                                 parameters and the limits of its check;
   perfbench/configs/<config>.json  the configuration's sizes;
-  perfbench/drivers/<driver>.py    one kind of traffic (class Driver);
+  perfbench/drivers/<driver>.py    one kind of traffic (class Driver,
+                                which declares its own rehearsal);
   perfbench/metrics/<metric>.py    one metric's reader, read(run) -> value
                                 or None (nothing to read: left out).
 
@@ -27,7 +28,6 @@ from __future__ import annotations
 
 import dataclasses
 import gc
-import importlib
 import importlib.util
 import json
 import math
@@ -92,20 +92,26 @@ def find_cell(name: str, root=ROOT) -> Cell:
     return Cell(name, entry, workload, config, e2e, layer)
 
 
-def driver_class(name: str):
-    return importlib.import_module(f"perfbench.drivers.{name}").Driver
+def _load(root, kind: str, name: str):
+    """perfbench/<kind>/<name>.py under `root`, loaded by path (a name may
+    hold dots, and a file added to a copy of the benchmark is found there)."""
+    path = pathlib.Path(root) / "perfbench" / kind / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(
+        f"perfbench.{kind}._{name.replace('.', '_').replace('-', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def driver_class(name: str, root=ROOT):
+    """perfbench/drivers/<name>.py's Driver: one kind of traffic, with its
+    rehearsal (TINY, SMALL, FAULTS) declared on the class."""
+    return _load(root, "drivers", name).Driver
 
 
 def reader(metric: str, root=ROOT):
-    """perfbench/metrics/<metric>.py's read function (the file name may
-    hold dots, so it is loaded by path)."""
-    path = pathlib.Path(root) / "perfbench" / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"perfbench.metrics._{metric.replace('.', '_').replace('-', '_')}",
-        path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    """perfbench/metrics/<metric>.py's read function."""
+    return _load(root, "metrics", metric).read
 
 
 @dataclasses.dataclass
@@ -163,7 +169,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     t0 = time.perf_counter() if t0 is None else t0
     cell = find_cell(name, root)
     spans = tracing.Spans(device, sync=trace)
-    Driver = driver_class(cell.workload["driver"])
+    Driver = driver_class(cell.workload["driver"], root)
     drv = Driver(cell.config, cell.workload, seed, device, spans,
                  variant=variant, scale=scale)
     drv.setup()

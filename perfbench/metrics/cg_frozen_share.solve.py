@@ -3,11 +3,11 @@
 (CG, ...)" records (CGResult.frozen): the waste of reading the stopping
 test once per block of iterations."""
 
-from perfbench import phase_keys
+from perfbench import readers
 
 
 def read(run):
-    sums = phase_keys.totals(run, "Linear solve (CG", "iters", "frozen")
+    sums = readers.totals(run, "Linear solve (CG", "iters", "frozen")
     if sums is None or not sum(sums):
         return None
     iters, frozen = sums

@@ -3,11 +3,11 @@ over the program's "Linear solve (CG, ...)" records (CGResult.reads). Just under
 on a loop that reads every iteration (and twice before it); about the
 block length on one that reads once per replayed block."""
 
-from perfbench import phase_keys
+from perfbench import readers
 
 
 def read(run):
-    sums = phase_keys.totals(run, "Linear solve (CG", "iters", "reads")
+    sums = readers.totals(run, "Linear solve (CG", "iters", "reads")
     if sums is None or not sums[1]:
         return None
     return sums[0] / sums[1]

@@ -4,8 +4,8 @@ its part "general_s" (span setup.general_operator). A part is host time
 only: it does not synchronise, so device work it queued may be charged to
 a later part or to the phase's closing sync, where the phase settles it."""
 
-from perfbench import phase_keys
+from perfbench import readers
 
 
 def read(run):
-    return phase_keys.mean_per_solve(run, "Operator setup", "general_s")
+    return readers.phase_mean(run, "Operator setup", "general_s")

@@ -5,8 +5,8 @@ setup.cg_operator). A part is host time only: it does not synchronise, so
 device work it queued may be charged to a later part or to the phase's
 closing sync, where the phase settles it."""
 
-from perfbench import phase_keys
+from perfbench import readers
 
 
 def read(run):
-    return phase_keys.mean_per_solve(run, "Operator setup", "grid_s")
+    return readers.phase_mean(run, "Operator setup", "grid_s")

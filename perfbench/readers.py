@@ -13,14 +13,29 @@ def percentile(values, q: float) -> float:
     return float(np.percentile(values, q))
 
 
-def phase_mean(run, prefix: str):
-    """Mean seconds per solve of the PhaseTimer phase whose name starts
-    with `prefix`, over the window's solves; None without such phases."""
-    per_solve = [sum(r["seconds"] for r in recs
-                     if r["phase"].startswith(prefix))
-                 for recs in run.counters.get("phases", ())
-                 if any(r["phase"].startswith(prefix) for r in recs)]
-    return mean(per_solve)
+def _records(run, prefix: str, keys):
+    """Every PhaseTimer record of the window's solves whose phase starts
+    with `prefix` and which holds all `keys`, by solve."""
+    return [[r for r in recs if r["phase"].startswith(prefix)
+             and all(k in r for k in keys)]
+            for recs in run.counters.get("phases", ())]
+
+
+def phase_mean(run, prefix: str, key: str = "seconds"):
+    """Mean over the window's solves of `key` (a phase's seconds, or a part
+    or counter it adds to its record) summed over the solve's phases whose
+    name starts with `prefix`; None where no such phase holds it."""
+    return mean([sum(r[key] for r in recs)
+                 for recs in _records(run, prefix, (key,)) if recs])
+
+
+def totals(run, prefix: str, *keys):
+    """Each of `keys` summed over every phase that starts with `prefix` and
+    holds them all, over the window; None where none does."""
+    recs = [r for by_solve in _records(run, prefix, keys) for r in by_solve]
+    if not recs:
+        return None
+    return tuple(sum(r[k] for r in recs) for k in keys)
 
 
 def idle_percent(run):

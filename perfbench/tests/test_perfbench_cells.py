@@ -8,39 +8,56 @@ sizes are perfbench/tools/readings.py's, in PERF.md)."""
 
 import json
 import math
+import pathlib
 
 import pytest
 import torch
 
 from perfbench import harness
 
-TINY = {"linear_cases": (6, 4, 4), "linear_solve": (6, 4, 4), "hmc": (5, 3, 3)}
-FAULTS = {"linear_cases": ("unchanged", "altered"),
-          "linear_solve": ("unchanged", "altered"),
-          "hmc": ("unchanged", "half", "altered")}
-BENCH = harness.load_json(harness.ROOT / "BENCHMARK.json")
-CELLS = [w["name"] for w in BENCH["workloads"]]
+
+def cells(root=harness.ROOT):
+    bench = harness.load_json(pathlib.Path(root) / "BENCHMARK.json")
+    return [w["name"] for w in bench["workloads"]]
 
 
-def _driver(cell):
-    return harness.find_cell(cell).workload["driver"]
+def rehearsal(cell, root=harness.ROOT):
+    """The cell's traffic driver, which declares TINY, SMALL and FAULTS."""
+    return harness.driver_class(
+        harness.find_cell(cell, root).workload["driver"], root)
 
 
-def _faults(cell):
-    """The faults a cell can have: half of a batch of one chain is none."""
-    one = harness.find_cell(cell).workload["traffic"].get("chains", 2) == 1
-    return [f for f in FAULTS[_driver(cell)] if not (one and f == "half")]
+def _faults(cell, root=harness.ROOT):
+    """The faults a cell can have: half of a batch of one chain is none. A
+    driver without FAULTS has none here; the drivers' own test fails it."""
+    one = harness.find_cell(cell, root).workload["traffic"].get(
+        "chains", 2) == 1
+    return [f for f in getattr(rehearsal(cell, root), "FAULTS", ())
+            if not (one and f == "half")]
 
 
-def _run(cell, trace=False, variant="program", seed=2 ** 31 + 11):
+def fault_cases(root=harness.ROOT):
+    return [(c, f) for c in cells(root) for f in _faults(c, root)]
+
+
+def acceptance_cells(root=harness.ROOT):
+    """The cells whose check counts the Metropolis step's decision errors."""
+    return [c for c in cells(root)
+            if "decision_errors" in harness.find_cell(c, root).workload[
+                "limits"]]
+
+
+def _run(cell, trace=False, variant="program", seed=2 ** 31 + 11,
+         root=harness.ROOT):
     code, res = harness.run_cell(cell, seed, 0.2, trace, device="cpu",
-                                 variant=variant, scale=TINY[_driver(cell)])
+                                 variant=variant,
+                                 scale=rehearsal(cell, root).TINY, root=root)
     assert code == 0
     return json.loads(json.dumps(res))  # what the last line would carry
 
 
 @pytest.mark.parametrize("trace", [False, True])
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", cells())
 def test_rehearsal_prints_a_well_formed_line(cell, trace):
     res = _run(cell, trace)
     assert list(res)[:5] == ["correct", "attempted", "failed", "metrics",
@@ -62,8 +79,7 @@ def test_rehearsal_prints_a_well_formed_line(cell, trace):
         assert set(v) == {"value", "limit"}
 
 
-@pytest.mark.parametrize("cell,fault", [(c, f) for c in CELLS
-                                        for f in _faults(c)])
+@pytest.mark.parametrize("cell,fault", fault_cases())
 def test_a_broken_timed_path_is_not_correct(cell, fault):
     res = _run(cell, variant=fault)
     assert res["correct"] is False, res["checks"]
@@ -78,7 +94,7 @@ def _refused(la):
 
 
 @pytest.mark.parametrize("broken", [_flipped, _refused])
-@pytest.mark.parametrize("cell", [c for c in CELLS if _driver(c) == "hmc"])
+@pytest.mark.parametrize("cell", acceptance_cells())
 def test_a_broken_acceptance_is_not_correct(cell, broken, monkeypatch):
     """The program's Metropolis step broken underneath (ΔH's sign flipped;
     every proposal refused): the chains' log posteriors, gradients and
@@ -96,7 +112,7 @@ def test_a_broken_acceptance_is_not_correct(cell, broken, monkeypatch):
                if n != "decision_errors")
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", cells())
 def test_control_is_not_correct(cell):
     """The reference in the precision below the configuration's, in the
     program's place, at a tiny size on the CPU."""
@@ -105,15 +121,11 @@ def test_control_is_not_correct(cell):
         assert res["correct"] is False, res["checks"]
 
 
-SMALL = {"linear_cases": (24, 24, 24), "linear_solve": (24, 24, 24),
-         "hmc": (16, 16, 16)}
-
-
 @pytest.mark.gpu
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", cells())
 def test_control_is_not_correct_on_the_card(cell, card):
     for seed in (101,):
         code, res = harness.run_cell(cell, seed, 0.5, False, device=card,
                                      variant="control",
-                                     scale=SMALL[_driver(cell)])
+                                     scale=rehearsal(cell).SMALL)
         assert code == 0 and res["correct"] is False, res["checks"]
