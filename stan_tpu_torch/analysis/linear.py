@@ -34,6 +34,12 @@ up to 6000 DOF the masked K is assembled dense and factored on the device
 host (solvers/banded.py), as in the reference. Both report the true
 float64 residual, read on the host by the general operator's twin
 (hostops.general_apply_np). Stress recovery runs on the general operator.
+
+Unlike the reference, which leaves the general operator uncertified above
+200,000 elements (stan_tpu/analysis/linear.py:275-276, where its float64
+host twin would cost minutes), the port certifies it at every size: its
+twin is built and swept by the host runtime (hostops.general_twin_np), a
+second or so at 1M DOF.
 """
 
 from __future__ import annotations
@@ -222,10 +228,10 @@ def _certify(model, cert_op, grid, u64, loads, dtype, tol, maxiter, timer):
     (hostops.masked_f64_apply), as the reference certifies: x and the
     residual in float64 on the host, each correction solved in `dtype` on
     cert_op's device by the same CG as the base solve. Returns (its
-    RefinedResult, u [nnode, 3] float64 on the host). The open phase of
-    `timer` gets the parts of its seconds: twin set-up (twin_s), inner CG
-    (inner_s), copies (copy_s); the host sweeps are the RefinedResult's
-    sweep_seconds."""
+    RefinedResult, u [nnode, 3] float64 on the host, the float64 sweeps
+    run). The open phase of `timer` gets the parts of its seconds: twin
+    set-up (twin_s), inner CG (inner_s), copies (copy_s); the host sweeps
+    are the RefinedResult's sweep_seconds."""
     # The structured twin reads the operator's Lame fields, which a float32
     # operator holds rounded: it reads a float64 copy built on the host.
     with timer.part("certify.twin", "twin_s"):
@@ -241,7 +247,11 @@ def _certify(model, cert_op, grid, u64, loads, dtype, tol, maxiter, timer):
         b64, x0 = (_to_grid(cert_op.node_shape, v) for v in (b64, x0))
     b64 = cert_op.free_mask.cpu().to(torch.float64) * b64
 
+    sweeps = 0
+
     def A_hi(x):
+        nonlocal sweeps
+        sweeps += 1
         return torch.from_numpy(twin(x.numpy()))
 
     def inner_solve(r, t):
@@ -256,7 +266,7 @@ def _certify(model, cert_op, grid, u64, loads, dtype, tol, maxiter, timer):
     rr = cg_mod.pcg_refined(
         None, b64, A_hi, tol=tol, maxiter=maxiter, ndof=3 * model.nnode,
         x0=x0, lo_dtype=dtype, inner_solve=inner_solve)
-    return rr, _from_grid(rr.u) if grid else rr.u
+    return rr, _from_grid(rr.u) if grid else rr.u, sweeps
 
 
 def _solve_direct(model, solver, op, f, timer, certify):
@@ -366,18 +376,18 @@ def solve_linear_statics(
                    and dtype != torch.float64 else None)
         true_residual = None
         cert_op = sop if sop is not None else op
-        needs_cert = (certify and dtype != torch.float64
-                      and not (sop is None and model.nelem > 200_000))
+        needs_cert = certify and dtype != torch.float64
         if needs_cert:
             with timer.phase("Certify (f64 refinement)"):
-                rr, u64 = _certify(model, cert_op, sop is not None, u64,
-                                   loads, dtype, tol, maxiter, timer)
+                rr, u64, sweeps = _certify(model, cert_op, sop is not None,
+                                           u64, loads, dtype, tol, maxiter,
+                                           timer)
                 true_residual = rr.rel_residual
                 refine_cycles = rr.cycles
                 refine_iters = rr.inner_iters
                 converged = rr.converged
             timer.records[-1].update(refine_iters=refine_iters,
-                                     sweep_s=rr.sweep_seconds)
+                                     sweep_s=rr.sweep_seconds, sweeps=sweeps)
         u = u64.to(dtype).to(device)
 
     with timer.phase("Stress recovery"):

@@ -1,4 +1,5 @@
-# Copied unchanged from stan_tpu/core/validate.py.
+# Copied from stan_tpu/core/validate.py, with check_model also naming the
+# elements whose Jacobian determinant is not positive (_inverted_elements).
 """Model validation: validate-and-refuse at ingest.
 
 The reference collects mesh-parse failures into ``Database.Import_Error``
@@ -108,7 +109,44 @@ def check_model(model, *, require_loads: bool = True) -> List[str]:
     if require_loads and model.nelem and not has_load:
         problems.append("no nonzero PointLoad — the solution is trivially zero")
 
+    problems.extend(_inverted_elements(model))
     return problems
+
+
+def _inverted_elements(model, block: int = 65536) -> List[str]:
+    """The elements whose Jacobian determinant is not positive at some Gauss
+    point of the model's formulation, named by their ids. A mirrored node
+    order makes every det J negative: K turns into -K, which Jacobi CG
+    still solves, to the negated answer. Checked only where check_model's
+    other findings leave the geometry defined (finite coordinates, indices
+    in range, one formulation); elements with repeated nodes are named by
+    their own finding."""
+    coords = np.asarray(model.coords, np.float64)
+    conn = np.asarray(model.conn)
+    if (not conn.size or not np.isfinite(coords).all() or conn.min() < 0
+            or conn.max() >= model.nnode or len(set(model.elem_type)) != 1):
+        return []
+    dN = np.asarray(model.formulation().gauss_dN, np.float64)  # [G, 3, nn]
+    bad = []
+    for lo in range(0, conn.shape[0], block):
+        part = conn[lo:lo + block]
+        J = np.einsum("gkn,enj->egkj", dN, coords[part])
+        det = (J[..., 0, 0] * (J[..., 1, 1] * J[..., 2, 2]
+                               - J[..., 1, 2] * J[..., 2, 1])
+               - J[..., 0, 1] * (J[..., 1, 0] * J[..., 2, 2]
+                                 - J[..., 1, 2] * J[..., 2, 0])
+               + J[..., 0, 2] * (J[..., 1, 0] * J[..., 2, 1]
+                                 - J[..., 1, 1] * J[..., 2, 0]))
+        sorted_part = np.sort(part, axis=1)
+        repeated = (sorted_part[:, 1:] == sorted_part[:, :-1]).any(axis=1)
+        bad.append(lo + np.flatnonzero((det <= 0).any(axis=1) & ~repeated))
+    bad = np.concatenate(bad)
+    if not bad.size:
+        return []
+    ids = np.asarray(model.elem_ids)[bad[:10]].tolist()
+    return [f"{bad.size} element(s) with a Jacobian determinant <= 0 at a "
+            f"Gauss point: inverted or mirrored node order (element ids "
+            f"{ids}{' ...' if bad.size > 10 else ''})"]
 
 
 def validate(model, *, require_loads: bool = True) -> None:

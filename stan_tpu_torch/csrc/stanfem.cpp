@@ -1,5 +1,6 @@
 // Copied from native/stanfem.cpp, without stanfem_node_incidence (the
-// port builds its incidence tables in numpy, fem/operator.node_incidence).
+// port builds its incidence tables in numpy, fem/operator.node_incidence),
+// and with the general operator's float64 host twin added at the end.
 //
 // The host runtime of stan_tpu_torch: plain C++ with OpenMP that runs on
 // the CPU beside the card, with a C ABI bound by ctypes
@@ -14,7 +15,10 @@
 //   * the graph builder: the BFS node order (reference algorithm:
 //     src/STAN_Database/Database.cs:140-234);
 //   * the float64 interior sweep of the assembled stencil, the hot loop of
-//     the host float64 operator (fem/stencil.apply_numpy).
+//     the host float64 operator (fem/stencil.apply_numpy);
+//   * the float64 element stiffnesses of an arbitrary mesh and their sweep,
+//     the host float64 twin of the general operator
+//     (fem/hostops.general_twin_np).
 //
 // The Python implementations in the port stay as the semantic spec: the
 // tests hold each function here to them, output for output.
@@ -497,6 +501,148 @@ void stanfem_stencil_interior_f64(const double* up, int64_t nnx, int64_t nny,
         }
       }
     }
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// Float64 element stiffnesses and their sweep (the general operator's host
+// twin)
+//
+// fem/hostops.general_apply_np is the semantic spec: ke = sum_g B^T D B
+// det(J) w per element, and f = sum over elements of ke u_e. At 1M DOF the
+// numpy form holds B [E, G, 6, 24] and takes minutes; here each element's
+// ke is built in registers and stored once (OpenMP over elements), and a
+// sweep is one product per element into a per-corner buffer followed by a
+// gather through the transposed incidence map (OpenMP over nodes): no
+// atomics, so a sweep gives the same bits on every run.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kMaxNodes = 8;  // HEX8; TET4 uses the first four
+constexpr int kMaxCols = 3 * kMaxNodes;
+
+// Column 3 a + d of B has three nonzeros: in Voigt row kRow[d][i] it holds
+// the gradient component kGrad[d][i] of node a (Voigt order xx, yy, zz, xy,
+// yz, xz, engineering shear; fem/kernels.b_matrix).
+constexpr int kRow[3][3] = {{0, 3, 5}, {1, 3, 4}, {2, 4, 5}};
+constexpr int kGrad[3][3] = {{0, 1, 2}, {1, 0, 2}, {2, 1, 0}};
+
+}  // namespace
+
+// coords: [nnode, 3]; conn: [n_elems, nn] node indices in [0, nnode);
+// D: [n_elems, 6, 6]; gdn: [ng, 3, nn] shape-function gradients in natural
+// coordinates; gw: [ng] Gauss weights; ke: [n_elems, 3 nn, 3 nn] out.
+// Returns 0, or -1 when nn is outside [1, 8].
+int stanfem_element_stiffness_f64(const double* coords, const int64_t* conn,
+                                  int64_t n_elems, int64_t nn,
+                                  const double* D, const double* gdn,
+                                  const double* gw, int64_t ng, double* ke) {
+  if (nn < 1 || nn > kMaxNodes) return -1;
+  const int64_t nc = 3 * nn;
+#ifdef _OPENMP
+#pragma omp parallel for schedule(static)
+#endif
+  for (int64_t e = 0; e < n_elems; ++e) {
+    double x[kMaxNodes][3];
+    for (int64_t a = 0; a < nn; ++a)
+      for (int j = 0; j < 3; ++j) x[a][j] = coords[conn[e * nn + a] * 3 + j];
+    const double* De = D + e * 36;
+    double k[kMaxCols][kMaxCols] = {};
+    for (int64_t g = 0; g < ng; ++g) {
+      const double* dl = gdn + g * 3 * nn;  // [3, nn]
+      double J[3][3] = {};  // J[k][j] = d x_j / d xi_k
+      for (int kk = 0; kk < 3; ++kk)
+        for (int64_t a = 0; a < nn; ++a)
+          for (int j = 0; j < 3; ++j) J[kk][j] += dl[kk * nn + a] * x[a][j];
+      const double c00 = J[1][1] * J[2][2] - J[1][2] * J[2][1];
+      const double c01 = J[1][2] * J[2][0] - J[1][0] * J[2][2];
+      const double c02 = J[1][0] * J[2][1] - J[1][1] * J[2][0];
+      const double det = J[0][0] * c00 + J[0][1] * c01 + J[0][2] * c02;
+      const double inv[3][3] = {
+          {c00 / det, (J[0][2] * J[2][1] - J[0][1] * J[2][2]) / det,
+           (J[0][1] * J[1][2] - J[0][2] * J[1][1]) / det},
+          {c01 / det, (J[0][0] * J[2][2] - J[0][2] * J[2][0]) / det,
+           (J[0][2] * J[1][0] - J[0][0] * J[1][2]) / det},
+          {c02 / det, (J[0][1] * J[2][0] - J[0][0] * J[2][1]) / det,
+           (J[0][0] * J[1][1] - J[0][1] * J[1][0]) / det}};
+      double dn[3][kMaxNodes];  // gradients in global coordinates
+      for (int j = 0; j < 3; ++j)
+        for (int64_t a = 0; a < nn; ++a) {
+          double v = 0.0;
+          for (int kk = 0; kk < 3; ++kk) v += inv[j][kk] * dl[kk * nn + a];
+          dn[j][a] = v;
+        }
+      const double w = det * gw[g];
+      double db[6][kMaxCols];  // D B
+      for (int64_t a = 0; a < nn; ++a)
+        for (int d = 0; d < 3; ++d) {
+          const int64_t c = 3 * a + d;
+          for (int i = 0; i < 6; ++i) {
+            double v = 0.0;
+            for (int r = 0; r < 3; ++r)
+              v += De[i * 6 + kRow[d][r]] * dn[kGrad[d][r]][a];
+            db[i][c] = v;
+          }
+        }
+      for (int64_t a = 0; a < nn; ++a)
+        for (int d = 0; d < 3; ++d) {
+          const int64_t c1 = 3 * a + d;
+          double b[3];
+          for (int r = 0; r < 3; ++r) b[r] = w * dn[kGrad[d][r]][a];
+          for (int64_t c2 = c1; c2 < nc; ++c2)
+            k[c1][c2] += b[0] * db[kRow[d][0]][c2] +
+                         b[1] * db[kRow[d][1]][c2] + b[2] * db[kRow[d][2]][c2];
+        }
+    }
+    double* out = ke + e * nc * nc;
+    for (int64_t c1 = 0; c1 < nc; ++c1)
+      for (int64_t c2 = c1; c2 < nc; ++c2)
+        out[c1 * nc + c2] = out[c2 * nc + c1] = k[c1][c2];
+  }
+  return 0;
+}
+
+// ke: [n_elems, 3 nn, 3 nn]; conn: [n_elems, nn]; u: [nnode, 3];
+// inc: [nnode, maxdeg] positions in the flattened [n_elems * nn] corner axis
+// (n_elems * nn for padding, fem/operator.node_incidence); fe: scratch of
+// n_elems * nn * 3 + 3 doubles; out: [nnode, 3] = K u.
+void stanfem_element_apply_f64(const double* ke, const int64_t* conn,
+                               int64_t n_elems, int64_t nn, const double* u,
+                               const int64_t* inc, int64_t nnode,
+                               int64_t maxdeg, double* fe, double* out) {
+  const int64_t nc = 3 * nn;
+#ifdef _OPENMP
+#pragma omp parallel for schedule(static)
+#endif
+  for (int64_t e = 0; e < n_elems; ++e) {
+    double ue[kMaxCols];
+    for (int64_t a = 0; a < nn; ++a)
+      for (int d = 0; d < 3; ++d) ue[3 * a + d] = u[conn[e * nn + a] * 3 + d];
+    const double* k = ke + e * nc * nc;
+    double* f = fe + e * nc;
+    for (int64_t c1 = 0; c1 < nc; ++c1) {
+      double v = 0.0;
+      for (int64_t c2 = 0; c2 < nc; ++c2) v += k[c1 * nc + c2] * ue[c2];
+      f[c1] = v;
+    }
+  }
+  fe[n_elems * nc] = fe[n_elems * nc + 1] = fe[n_elems * nc + 2] = 0.0;
+#ifdef _OPENMP
+#pragma omp parallel for schedule(static)
+#endif
+  for (int64_t n = 0; n < nnode; ++n) {
+    double s[3] = {0.0, 0.0, 0.0};
+    for (int64_t j = 0; j < maxdeg; ++j) {
+      const double* f = fe + inc[n * maxdeg + j] * 3;
+      s[0] += f[0];
+      s[1] += f[1];
+      s[2] += f[2];
+    }
+    out[n * 3] = s[0];
+    out[n * 3 + 1] = s[1];
+    out[n * 3 + 2] = s[2];
   }
 }
 

@@ -1,5 +1,6 @@
 # Copied from stan_tpu/fem/hostops.py (every function; the port reads its
-# operators' tensors through .cpu()).
+# operators' tensors through .cpu()), with general_twin_np added: the
+# general operator's twin in the host runtime, which certifies at 1M DOF.
 """Host-side float64 operators (numpy).
 
 The port builds the structured grid's unit-Lame element stiffness
@@ -8,7 +9,10 @@ before moving them to the card. The rest of this module is the float64
 action of the same assembled K for each operator family, in numpy on the
 host, independent of the device code:
 
-  * general_apply_np: matvec through per-element ke + np.add.at scatter,
+  * general_apply_np: matvec through per-element ke + np.add.at scatter
+    (the spec, for small meshes),
+  * general_twin_np: the same K from the host runtime (native.py): ke built
+    and applied with OpenMP, scattered through the incidence map,
   * stencil_apply_np: the exact float64 signature tables
     (fem/stencil.exact_tables + apply_numpy),
   * structured_apply_np: the StructuredOperator slice-gather/scatter path,
@@ -25,6 +29,7 @@ from typing import Callable
 import numpy as np
 
 from stan_tpu_torch.fem.elements import ElementFormulation
+from stan_tpu_torch.utils.timing import span
 
 
 def _b_matrix_np(dN: np.ndarray) -> np.ndarray:
@@ -110,6 +115,39 @@ def general_apply_np(
     return apply
 
 
+def general_twin_np(
+    coords: np.ndarray,
+    conn: np.ndarray,
+    D_e: np.ndarray,
+    form: ElementFormulation,
+    fix_mask: np.ndarray,
+) -> Callable[[np.ndarray], np.ndarray]:
+    """general_apply_np's masked float64 K·u, built and swept by the host
+    runtime (native.element_stiffness_f64, element_apply_f64): ke [E, 3nn,
+    3nn] float64 once (4.6 KB an element for HEX8), each sweep one product
+    per element and a gather through fem/operator.node_incidence. The
+    build and each sweep are spans (twin.general.build, .sweep)."""
+    from stan_tpu_torch import native
+    from stan_tpu_torch.fem.operator import node_incidence
+
+    with span("twin.general.build"):
+        coords = np.asarray(coords, np.float64)
+        conn = np.ascontiguousarray(conn, dtype=np.int64)
+        ke = native.element_stiffness_f64(coords, conn, D_e, form.gauss_dN,
+                                          form.gauss_w)
+        inc = node_incidence(conn, coords.shape[0])
+        free = 1.0 - np.asarray(fix_mask, np.float64)
+        fe = np.empty(ke.shape[0] * ke.shape[1] + 3)
+
+    def apply(u: np.ndarray) -> np.ndarray:
+        with span("twin.general.sweep"):
+            u = np.asarray(u, np.float64)
+            f = native.element_apply_f64(ke, conn, inc, free * u, fe)
+            return free * f + (1.0 - free) * u
+
+    return apply
+
+
 def _host(t) -> np.ndarray:
     """A tensor of a (device) operator as a float64 numpy array."""
     return t.detach().cpu().numpy().astype(np.float64)
@@ -151,7 +189,7 @@ def masked_f64_apply(model, op) -> Callable[[np.ndarray], np.ndarray]:
     if isinstance(op, StructuredOperator):
         return structured_apply_np(model, op)
     if isinstance(op, StiffnessOperator):
-        return general_apply_np(
+        return general_twin_np(
             model.coords, model.conn,
             np.asarray(model.elem_d_matrices(), np.float64),
             model.formulation(), model.fix_mask())

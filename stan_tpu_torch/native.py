@@ -1,11 +1,12 @@
-# Copied from stan_tpu/native.py, with the library built by _build, and
-# without available and node_incidence, which no path of the port calls.
+# Copied from stan_tpu/native.py, with the library built by _build,
+# without available and node_incidence, which no path of the port calls,
+# and with element_stiffness_f64 and element_apply_f64 added.
 """ctypes bindings for the port's host runtime (csrc/stanfem.cpp).
 
 C++ implementations of the host-side hot paths: .bdf parsing and the
 protobuf wire scan (the data loaders), the BFS node order (the graph
-builder), and the float64 interior stencil sweep (the host float64
-operator). The library is built with the host C++
+builder), the float64 interior stencil sweep and the float64 element
+stiffnesses with their sweep (the host float64 operators). The library is built with the host C++
 compiler at the first call (_build.host_library) and raises if it cannot
 be built: nothing here falls back. The Python implementations stay as the
 semantic spec; tests hold the two to identical outputs.
@@ -86,6 +87,16 @@ def _load() -> ctypes.CDLL:
         np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS"),
     ]
     lib.stanfem_stencil_interior_f64.restype = None
+    f64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    lib.stanfem_element_stiffness_f64.argtypes = [
+        f64, i64, ctypes.c_int64, ctypes.c_int64, f64, f64, f64,
+        ctypes.c_int64, f64]
+    lib.stanfem_element_stiffness_f64.restype = ctypes.c_int
+    lib.stanfem_element_apply_f64.argtypes = [
+        f64, i64, ctypes.c_int64, ctypes.c_int64, f64, i64, ctypes.c_int64,
+        ctypes.c_int64, f64, f64]
+    lib.stanfem_element_apply_f64.restype = None
     _lib = lib
     return _lib
 
@@ -184,4 +195,58 @@ def stencil_interior_f64(up: np.ndarray, tab: np.ndarray) -> np.ndarray:
     out = np.empty((3, nnx, nny, nnz), dtype=np.float64)
     lib.stanfem_stencil_interior_f64(up.reshape(-1), nnx, nny, nnz,
                                      tab.reshape(-1), out.reshape(-1))
+    return out
+
+
+def element_stiffness_f64(coords: np.ndarray, conn: np.ndarray,
+                          D: np.ndarray, gauss_dN: np.ndarray,
+                          gauss_w: np.ndarray) -> np.ndarray:
+    """Float64 element stiffnesses ke [E, 3nn, 3nn] = sum_g B^T D B det(J) w
+    (fem/hostops.element_stiffness_np's arithmetic, OpenMP over elements).
+
+    coords: [nnode, 3]; conn: [E, nn], nn <= 8; D: [E, 6, 6]; gauss_dN:
+    [G, 3, nn] natural-coordinate gradients; gauss_w: [G].
+    """
+    lib = _load()
+    coords = np.ascontiguousarray(coords, dtype=np.float64)
+    conn = _node_indices(conn, coords.shape[0])
+    D = np.ascontiguousarray(D, dtype=np.float64)
+    gdn = np.ascontiguousarray(gauss_dN, dtype=np.float64)
+    gw = np.ascontiguousarray(gauss_w, dtype=np.float64)
+    E, nn = conn.shape
+    if (coords.ndim != 2 or coords.shape[1] != 3 or D.shape != (E, 6, 6)
+            or gdn.shape != (gw.size, 3, nn) or not 1 <= nn <= 8):
+        raise ValueError(f"coords {coords.shape}, conn {conn.shape}, D "
+                         f"{D.shape}, gauss_dN {gdn.shape}, gauss_w "
+                         f"{gw.shape}: want [nnode, 3], [E, nn <= 8], "
+                         "[E, 6, 6], [G, 3, nn], [G]")
+    ke = np.empty((E, 3 * nn, 3 * nn), dtype=np.float64)
+    lib.stanfem_element_stiffness_f64(coords.reshape(-1), conn.reshape(-1),
+                                      E, nn, D.reshape(-1), gdn.reshape(-1),
+                                      gw, gw.size, ke.reshape(-1))
+    return ke
+
+
+def element_apply_f64(ke: np.ndarray, conn: np.ndarray, inc: np.ndarray,
+                      u: np.ndarray, fe: np.ndarray) -> np.ndarray:
+    """f = K u [nnode, 3] from element stiffnesses ke [E, 3nn, 3nn]: one
+    product per element into the scratch fe (E * nn * 3 + 3 float64), then
+    a gather through the transposed incidence map inc [nnode, maxdeg]
+    (fem/operator.node_incidence). ke, conn and inc must be C-contiguous
+    of their dtypes, and conn's entries node indices (element_stiffness_f64
+    and the caller's node_incidence make them so): they are passed as they
+    are, since a sweep runs many times on one set."""
+    lib = _load()
+    E, nc, _ = ke.shape
+    nnode, maxdeg = inc.shape
+    u = np.ascontiguousarray(u, dtype=np.float64)
+    if (u.shape != (nnode, 3) or conn.shape != (E, nc // 3)
+            or fe.shape != (E * nc + 3,) or fe.dtype != np.float64):
+        raise ValueError(f"u {u.shape}, conn {conn.shape}, fe {fe.shape}: "
+                         f"want [{nnode}, 3], [{E}, {nc // 3}], "
+                         f"[{E * nc + 3}] float64")
+    out = np.empty((nnode, 3), dtype=np.float64)
+    lib.stanfem_element_apply_f64(ke.reshape(-1), conn.reshape(-1), E,
+                                  nc // 3, u.reshape(-1), inc.reshape(-1),
+                                  nnode, maxdeg, fe, out.reshape(-1))
     return out

@@ -101,16 +101,30 @@ SAME_CODE = [("core/validate.py", "ValidationError"),
              ("io/stdb.py", "from_proto")]
 
 
-def _top_level(rel, root):
+# Statements a function of a host copy adds to the reference's code, each
+# left out before the comparison: check_model also names the elements whose
+# Jacobian determinant is not positive.
+ADDED = {("core/validate.py", "check_model"):
+         ["problems.extend(_inverted_elements(model))"]}
+
+
+def _top_level(rel, root, added=()):
     tree = ast.parse((REPO / root / rel).read_text())
-    return {n.name: ast.dump(n) for n in tree.body
-            if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    out = {}
+    for n in tree.body:
+        if isinstance(n, (ast.FunctionDef, ast.ClassDef)):
+            n.body = [b for b in n.body if ast.unparse(b) not in added]
+            out[n.name] = ast.dump(n)
+    return out
 
 
 @pytest.mark.parametrize("rel,name", SAME_CODE,
                          ids=[f"{r}:{n}" for r, n in SAME_CODE])
 def test_host_copy_keeps_the_reference_code(rel, name):
-    assert _top_level(rel, "stan_tpu_torch")[name] == _top_level(
+    added = ADDED.get((rel, name), ())
+    port = (REPO / "stan_tpu_torch" / rel).read_text()
+    assert all(a in port for a in added)
+    assert _top_level(rel, "stan_tpu_torch", added)[name] == _top_level(
         rel, "stan_tpu")[name]
 
 
