@@ -42,6 +42,15 @@ Phases, each of which raises on failure:
      multiply-adds at the peak rate, data sheet) and share of it; and the
      time of one library call of the same function, torch.sparse.mm with
      K (or [K_λ | K_μ]) assembled as CSR, checked against the kernel;
+     then the general operator's two kernels (csrc/general_apply.cu) at
+     LE10's shapes (perfbench/plate.py, 331,776 HEX8_G2 elements), float32
+     and float64: against the plain version (SWEEP_RTOL) and two applies
+     to the bit, ms, ms_graph, ms_cold, the plain version's time, the
+     bound of perfbench/rooflines/general_apply.py, the element kernel's
+     and the node pass's device time under torch.profiler (a
+     "general_apply" JSON line, and a row of the kernels line); then
+     against the plain version at the general forward's shape (16 chains
+     on the 32^3 beam, one D a chain expanded over the elements);
   6. the linear main path: solve_linear_statics(hex_beam(70, 70, 70),
      device="cuda") in float32 with float64 certification (1,073,733 DOF):
      operator "stencil", converged, certified residual <= 1e-6, at least
@@ -223,11 +232,12 @@ Exits non-zero, with no result, when there is no CUDA device.
 Run from the repository root:
   python3 chip_smoke.py [--profile] [--cli] | [--kernels]
 
-The general path's phases (14-17) run no kernel of their own: the device
-code of the direct solvers, the nonlinear statics and the field and
-general forwards is plain torch and torch.linalg, as it is XLA in the JAX
-package; the banded solver is float64 host LAPACK in both. So is the
-sharded general operator (phase 20); the sharded stencil phases (18, 19,
+The general path's phases (14-17) run no kernel of their own but the
+general operator's (csrc/general_apply.cu, in the general forward's CG):
+the device code of the direct solvers, the nonlinear statics and the field
+forward is plain torch and torch.linalg, as it is XLA in the JAX package;
+the banded solver is float64 host LAPACK in both. So is the sharded
+general operator (phase 20); the sharded stencil phases (18, 19,
 21) run stencil_sweep and theta_sweep_batched on x-slabs with their face
 flags, and phase 22 runs theta_sweep_batched on each row's block of
 chains. In phases 18-22 one process drives every device of a mesh; with one
@@ -636,22 +646,36 @@ def wall(fn) -> float:
     return time.perf_counter() - t0
 
 
-def reset_launches():
-    from stan_tpu_torch.fem import stencil
+KERNELS = ("stencil_sweep", "theta_sweep", "theta_sweep_batched",
+           "general_apply")
 
-    stencil.launches = 0
-    stencil.theta_launches = 0
-    stencil.theta_batched_launches = 0
-    stencil.flag_launches.clear()
+
+def reset_launches():
+    from stan_tpu_torch.fem import launches
+
+    launches.reset()
+
+
+def launched(key) -> int:
+    """The launches counted under key (a kernel wrapper's name, or (name,
+    is_low, is_high)) since the last reset_launches()."""
+    from stan_tpu_torch.fem import launches
+
+    return launches.counts[key]
 
 
 def launch_counts() -> tuple:
-    """The launches of (stencil_sweep, theta_sweep, theta_sweep_batched)
-    since the last reset_launches()."""
-    from stan_tpu_torch.fem import stencil
+    """The launches of each of KERNELS since the last reset_launches()."""
+    return tuple(launched(k) for k in KERNELS)
 
-    return (stencil.launches, stencil.theta_launches,
-            stencil.theta_batched_launches)
+
+def flag_launches() -> dict:
+    """{(wrapper, is_low, is_high): launches} since the last
+    reset_launches(), sorted."""
+    from stan_tpu_torch.fem import launches
+
+    return dict(sorted((k, n) for k, n in launches.counts.items()
+                       if isinstance(k, tuple)))
 
 
 def observe(u_true):
@@ -774,7 +798,6 @@ def _report_solves(label, st, card) -> None:
 def nuts_phase(prob, theta0, card) -> tuple:
     """run_nuts on the calibration posterior; returns the launches of
     (theta_sweep, theta_sweep_batched) in this phase."""
-    from stan_tpu_torch.fem import stencil
     from stan_tpu_torch.infer import nuts
 
     reset_launches()
@@ -785,7 +808,7 @@ def nuts_phase(prob, theta0, card) -> tuple:
                         solve_stats=prob.fwd.stats)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = (stencil.theta_launches, stencil.theta_batched_launches)
+    launches = (launched("theta_sweep"), launched("theta_sweep_batched"))
     st = out.solve_stats
     run_s = out.warmup_seconds + sum(out.chunk_seconds)
     sps = CHAINS * sum(out.chunk_sizes) / sum(out.chunk_seconds)
@@ -819,7 +842,6 @@ def nuts_phase(prob, theta0, card) -> tuple:
 def vi_smc_phase(prob, theta0, card) -> tuple:
     """ADVI and SMC on the calibration posterior, short; returns the
     launches of (theta_sweep, theta_sweep_batched) in this phase."""
-    from stan_tpu_torch.fem import stencil
     from stan_tpu_torch.infer import smc, vi
 
     reset_launches()
@@ -829,7 +851,7 @@ def vi_smc_phase(prob, theta0, card) -> tuple:
                       n_elbo_samples=VI_DRAWS)
     torch.cuda.synchronize()
     vi_s = time.perf_counter() - t0
-    vi_launches = stencil.theta_batched_launches
+    vi_launches = launched("theta_sweep_batched")
     print(f"[{card}] ADVI {G}^3, {VI_STEPS} steps of {VI_DRAWS} draws: "
           f"{vi_s:.2f} s; mu {np.round(res.mu, 4).tolist()}, sigma "
           f"{np.round(res.sigma, 4).tolist()}, last ELBO "
@@ -846,7 +868,7 @@ def vi_smc_phase(prob, theta0, card) -> tuple:
                       max_stages=SMC_STAGES, device="cuda")
     torch.cuda.synchronize()
     smc_s = time.perf_counter() - t0
-    smc_launches = stencil.theta_batched_launches - vi_launches
+    smc_launches = launched("theta_sweep_batched") - vi_launches
     print(f"[{card}] SMC {G}^3, {SMC_PARTICLES} particles, {SMC_MCMC} "
           f"Metropolis steps, at most {SMC_STAGES} stages: {smc_s:.2f} s; "
           f"temperatures {np.round(out.temperatures, 6).tolist()}, "
@@ -857,7 +879,7 @@ def vi_smc_phase(prob, theta0, card) -> tuple:
             and np.isfinite(out.log_evidence), "SMC not finite")
     require((np.diff(out.temperatures) > 0).all(),
             f"SMC temperatures {out.temperatures} do not rise")
-    return stencil.theta_launches, stencil.theta_batched_launches
+    return launched("theta_sweep"), launched("theta_sweep_batched")
 
 
 def profile_gradient(prob, card, top: int = 10) -> None:
@@ -992,16 +1014,19 @@ def _max_gap(a, b) -> float:
     return float(np.abs(a - b).max()) / float(np.abs(b).max())
 
 
-def direct_phase(card) -> None:
+def direct_phase(card) -> int:
     """The direct solvers through solve_linear_statics: dense Cholesky and
     LU on the card, float32 and float64, on hex_beam(*TET_BEAM) split into
     TET4 (under the 6000-DOF dense limit), and the banded float64 host
     solvers on hex_beam(*BAND_BEAM) (above it). Each float64 answer is held
-    to a float64 CG solve of the same model to DIRECT_GAP of max|u|."""
+    to a float64 CG solve of the same model to DIRECT_GAP of max|u|.
+    Returns the general_apply launches of those CG solves (at least one an
+    iteration where the general operator solves)."""
     from stan_tpu_torch.analysis.linear import solve_linear_statics
     from stan_tpu_torch.core import meshgen
     from stan_tpu_torch.utils.timing import PhaseTimer
 
+    general = 0
     for label, make, dtypes in (
             (f"TET4 split of hex_beam{TET_BEAM}",
              lambda: tet_split(meshgen.hex_beam(*TET_BEAM)),
@@ -1015,11 +1040,16 @@ def direct_phase(card) -> None:
         ref = solve_linear_statics(cg_model, device="cuda",
                                    dtype=torch.float64, store=False)
         cg_s = time.perf_counter() - t0
+        counts = dict(zip(KERNELS, launch_counts()))
         print(f"[{card}] {label} ({3 * cg_model.nnode} DOF, "
               f"{cg_model.nelem} elements): float64 CG ({ref.operator}) to "
               f"{DIRECT_CG_TOL:g}: {ref.iters} iterations, converged "
-              f"{ref.converged}, {cg_s:.3f} s, stencil_sweep launches "
-              f"{launch_counts()[0]}")
+              f"{ref.converged}, {cg_s:.3f} s, launches {counts}")
+        if ref.operator == "general":
+            require(counts["general_apply"] >= ref.iters,
+                    f"{label}: {counts['general_apply']} general_apply "
+                    f"launches < {ref.iters} CG iterations")
+        general += counts["general_apply"]
         for solver in ("Cholesky", "LU"):
             for dtype in dtypes:
                 m = make()
@@ -1044,6 +1074,7 @@ def direct_phase(card) -> None:
                 if dtype == torch.float64:
                     require(gap <= DIRECT_GAP,
                             f"{label} {solver}: {gap} from float64 CG")
+    return general
 
 
 def nonlinear_phase(lin_u, card, profile) -> None:
@@ -1121,7 +1152,8 @@ def three_forwards_phase(cal_model, obs, card) -> int:
     gradient must agree to FORWARDS_GAP of their largest magnitude; in
     float32 to FORWARDS_GAP_F32, the float32 floor of the stencil and field
     operators. Returns the theta_sweep_batched launches of the stencil
-    gradients."""
+    gradients and the general_apply launches of the general ones (at least
+    one a batched loop iteration)."""
     from stan_tpu_torch.infer import calibrate, forward
 
     obs_nodes, obs_dirs, y, sigma = obs
@@ -1129,7 +1161,7 @@ def three_forwards_phase(cal_model, obs, card) -> int:
              + np.random.default_rng(5).normal(0.0, 0.1, (CHAINS, 3)))
     theta_c = np.stack([theta[:, 0], 0.5 / (1.0 + np.exp(-theta[:, 1])),
                         np.zeros(CHAINS)], axis=1)
-    batched = 0
+    batched = general = 0
     for dtype, tol, bound in ((torch.float32, 1e-6, FORWARDS_GAP_F32),
                               (torch.float64, 1e-10, FORWARDS_GAP)):
         kw = dict(dtype=dtype, device="cuda", cg_tol=tol)
@@ -1157,7 +1189,9 @@ def three_forwards_phase(cal_model, obs, card) -> int:
             grad_s = wall(lambda: prob.log_posterior(th).sum().backward())
             st = prob.fwd.stats.since(st0)
             loop = st["forward_loop_iters"] + st["adjoint_loop_iters"]
-            batched += launch_counts()[2]
+            counts = dict(zip(KERNELS, launch_counts()))
+            batched += counts["theta_sweep_batched"]
+            general += counts["general_apply"]
             with torch.no_grad():
                 u = forward.displacement_fn(prob.fwd, cal_model.nelem)(
                     torch.as_tensor(theta_c, device="cuda"))
@@ -1170,7 +1204,13 @@ def three_forwards_phase(cal_model, obs, card) -> int:
                   f"{st['adjoint_loop_iters']} adjoint, unconverged "
                   f"{st['forward_unconverged']} / "
                   f"{st['adjoint_unconverged']}, "
-                  f"{grad_s / loop * 1e3:.4f} ms per batched iteration")
+                  f"{grad_s / loop * 1e3:.4f} ms per batched iteration; "
+                  f"launches {counts}")
+            if name == "general":
+                require(counts["general_apply"] >= loop,
+                        f"general forward: {counts['general_apply']} "
+                        f"general_apply launches < {loop} batched loop "
+                        f"iterations")
         for name in ("field", "general"):
             gap_u = _max_gap(got[name][0], got["stencil"][0])
             gap_g = _max_gap(got[name][1], got["stencil"][1])
@@ -1180,7 +1220,7 @@ def three_forwards_phase(cal_model, obs, card) -> int:
             require(gap_u <= bound and gap_g <= bound,
                     f"{name} forward vs stencil, {dtype}: u {gap_u}, "
                     f"gradient {gap_g}")
-    return batched
+    return batched, general
 
 
 def two_material_beam(g):
@@ -1266,9 +1306,9 @@ def sweeps_by_dtype(counts):
     sweep = stencil.stencil_sweep
 
     def counted(up, *args):
-        before = stencil.launches
+        before = launched("stencil_sweep")
         out = sweep(up, *args)
-        counts[up.dtype] += stencil.launches - before
+        counts[up.dtype] += launched("stencil_sweep") - before
         return out
 
     stencil.stencil_sweep = counted
@@ -1313,14 +1353,14 @@ def certified_phase(model, lin, timer, op32, card) -> int:
     base_s = time.perf_counter() - t0
 
     by_dtype = collections.Counter()
-    before = stencil.launches
+    before = launched("stencil_sweep")
     with sweeps_by_dtype(by_dtype):
         cert = cg.pcg_certified(op32.apply, b64, ex.apply, diag=diag,
                                 tol=CERT_TOL, ndof=ndof, measure=True)
     # The wrapper does not see the float32 sweeps that the inner CG's CUDA
     # graph replays; the launch counter does, and the rest are float64.
     f64 = by_dtype[torch.float64]
-    f32 = stencil.launches - before - f64
+    f32 = launched("stencil_sweep") - before - f64
 
     # The host twin of the stencil operator: apply_numpy on exact_tables.
     t0 = time.perf_counter()
@@ -1383,7 +1423,7 @@ def certified_phase(model, lin, timer, op32, card) -> int:
     require(abs(lib - lin.true_residual) <= CERT_SAME,
             f"phase 6's certified residual {lin.true_residual} is not the "
             f"host reading of its u, {lib}")
-    return stencil.launches
+    return launched("stencil_sweep")
 
 
 def model_gaps(a, b) -> list:
@@ -1774,7 +1814,7 @@ def sharded_stencil_phases(card, profile, refs=None) -> int:
 
     reset_launches()
     res = ss.sharded_stencil_pcg(mesh, op, f, tol=1e-6)
-    flags = {k[1:]: n for k, n in stencil.flag_launches.items()
+    flags = {k[1:]: n for k, n in flag_launches().items()
              if k[0] == "stencil_sweep"}
     print(f"[{card}] stencil_sweep launches of one sharded solve "
           f"({res.iters} iterations) by flag pair (is_low, is_high): "
@@ -1796,9 +1836,9 @@ def sharded_stencil_phases(card, profile, refs=None) -> int:
     require(lin.operator == want, f"operator {lin.operator}, want {want}")
     require(lin.converged and lin.true_residual <= 1e-6,
             f"sharded linear solve: {lin.true_residual}")
-    launches = stencil.launches
+    launches = launched("stencil_sweep")
     print(f"[{card}] stencil_sweep launches in phase 19's counted runs: "
-          f"{launches} ({dict(sorted(stencil.flag_launches.items()))})")
+          f"{launches} ({flag_launches()})")
 
     if profile:
         profile_cg(None, None, None, f"the {list(sop.node_shape)} sharded "
@@ -1879,7 +1919,6 @@ def sharded_calibration_phase(cal_model, obs, theta0, card, refs=None
     returns the theta_sweep_batched launches of its HMC run. refs (a dict)
     gets its 16 θ and the one-process float32 value and gradient there,
     phase 23's one-process answer."""
-    from stan_tpu_torch.fem import stencil
     from stan_tpu_torch.infer import calibrate, hmc
 
     mesh = domain_mesh(*SHARD_MESH, card)
@@ -1935,15 +1974,15 @@ def sharded_calibration_phase(cal_model, obs, theta0, card, refs=None
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     st = out.solve_stats
-    batched = stencil.theta_batched_launches
+    batched = launched("theta_sweep_batched")
     loop = st["forward_loop_iters"] + st["adjoint_loop_iters"]
     print(f"[{card}] sharded HMC {G}^3 on {SHARD_MESH[0]} x {SHARD_MESH[1]} "
           f"({CHAINS} chains, {SHARD_LEAPFROG} leapfrog steps, "
           f"{SHARD_WARMUP} warmup + {SHARD_SAMPLES} samples): {wall_s:.2f} s, "
           f"{out.grad_evals} gradients; acceptance "
           f"{float(np.mean(out.accept_rate)):.3f}; theta_sweep_batched "
-          f"{batched}, theta_sweep {stencil.theta_launches} "
-          f"({dict(sorted(stencil.flag_launches.items()))})")
+          f"{batched}, theta_sweep {launched('theta_sweep')} "
+          f"({flag_launches()})")
     _report_solves("sharded HMC", st, card)
     require(out.samples.shape == (CHAINS, SHARD_SAMPLES, 3)
             and np.isfinite(out.samples).all(), "sharded HMC not finite")
@@ -1981,13 +2020,11 @@ def _placed_launches(label, st, seen, card) -> int:
     """Check and print one placed run's theta_sweep_batched launches: at
     least the batched loop iterations summed over the rows (one SolveStats
     for every row's forward); returns them."""
-    from stan_tpu_torch.fem import stencil
-
-    batched = stencil.theta_batched_launches
+    batched = launched("theta_sweep_batched")
     loop = st["forward_loop_iters"] + st["adjoint_loop_iters"]
     print(f"[{card}] {label}: theta_sweep_batched {batched} (by chains per "
           f"launch {dict(sorted(seen.items()))}), theta_sweep "
-          f"{stencil.theta_launches}; batched loop iterations over the rows "
+          f"{launched('theta_sweep')}; batched loop iterations over the rows "
           f"{loop}")
     _report_solves(label, st, card)
     require(batched >= loop, f"{label}: {batched} batched launches < {loop} "
@@ -2138,7 +2175,6 @@ def process_worker(rank: int, folder: str, backend: str) -> None:
     `folder`. Prints no result line."""
     from stan_tpu_torch import _build
     from stan_tpu_torch.core import meshgen
-    from stan_tpu_torch.fem import stencil
     from stan_tpu_torch.infer import calibrate, hmc
     from stan_tpu_torch.parallel import distributed, sharded
     from stan_tpu_torch.parallel import sharded_stencil as ss
@@ -2187,10 +2223,10 @@ def process_worker(rank: int, folder: str, backend: str) -> None:
     res = ss.sharded_stencil_pcg(mesh, op, f, tol=1e-6)
     torch.cuda.synchronize()
     report["stencil_flags"] = {f"{k[1]}{k[2]}": n for k, n in
-                               stencil.flag_launches.items()
+                               flag_launches().items()
                                if k[0] == "stencil_sweep"}
     out["stencil_u"], report["stencil_iters"] = res.u.cpu().numpy(), res.iters
-    report["stencil_launches"] = stencil.launches
+    report["stencil_launches"] = launched("stencil_sweep")
     # Then one solve timed, and one with the transport's calls timed (each
     # from a synchronised card, which adds syncs of its own).
     t0 = time.perf_counter()
@@ -2250,7 +2286,7 @@ def process_worker(rank: int, folder: str, backend: str) -> None:
         "seconds": time.perf_counter() - t0, "grad_evals": res.grad_evals,
         "solve_stats": res.solve_stats,
         "local_loop_iters": st.forward_loop_iters + st.adjoint_loop_iters,
-        "theta_sweep_batched": stencil.theta_batched_launches}
+        "theta_sweep_batched": launched("theta_sweep_batched")}
     out["hmc_samples"] = res.samples
     del prob, res
 
@@ -2266,7 +2302,7 @@ def process_worker(rank: int, folder: str, backend: str) -> None:
     torch.cuda.synchronize()
     report["forward"] = {"seconds": time.perf_counter() - t0,
                          "theta_sweep_batched":
-                             stencil.theta_batched_launches}
+                             launched("theta_sweep_batched")}
     out["forward_value"], out["forward_grad"] = (value.cpu().numpy(),
                                                  grad.cpu().numpy())
     np.savez(folder / f"out{rank}.npz", **out)
@@ -2283,7 +2319,6 @@ def processes_phase(card, refs, cal_model, obs, theta0) -> tuple:
     the workers and of that run."""
     import tempfile
 
-    from stan_tpu_torch.fem import stencil
     from stan_tpu_torch.infer import calibrate, hmc
 
     mesh = domain_mesh(PROC_ROWS, 1, card)
@@ -2295,7 +2330,7 @@ def processes_phase(card, refs, cal_model, obs, theta0) -> tuple:
                       n_warmup=PLACE_WARMUP, n_leapfrog=PLACE_LEAPFROG,
                       init_step=0.02, solve_stats=prob.fwd.stats, mesh=mesh)
     torch.cuda.synchronize()
-    one_batched = stencil.theta_batched_launches
+    one_batched = launched("theta_sweep_batched")
     print(f"[{card}] placed HMC float64 on {PROC_ROWS} x 1 in one process: "
           f"{time.perf_counter() - t0:.2f} s, {one.grad_evals} gradients; "
           f"theta_sweep_batched {one_batched}")
@@ -2615,34 +2650,150 @@ def device() -> dict:
             "count": torch.cuda.device_count()}
 
 
+def general_apply_phase(card, flush) -> dict:
+    """The general operator's kernels (csrc/general_apply.cu) at LE10's
+    shapes (perfbench/plate.py's 144 x 96 x 24 HEX8 plate, 331,776
+    elements, 351,625 nodes): each dtype against the plain version (and
+    two applies to the bit), then timed as the sweeps are (ms around
+    wrapper calls, ms_graph from graph replays, ms_cold with the L2
+    flushed), the plain version, the bound of perfbench/rooflines/
+    general_apply.py and the two kernels' device split under
+    torch.profiler. Then each dtype against the plain version at the
+    general forward's shape in phase 16: CHAINS systems on the G^3 beam,
+    one D per chain expanded over the elements. Returns {dtype: facts};
+    max_abs_err is the larger of the two shapes'. The registers and
+    spills are in phase 2's build log."""
+    from perfbench import plate
+    from perfbench.rooflines import general_apply as roof
+    from stan_tpu_torch.core import meshgen
+    from stan_tpu_torch.fem import elements
+    from stan_tpu_torch.fem.operator import build_operator
+    from stan_tpu_torch.infer.forward import (d_matrix_from_lame,
+                                              lame_from_E_nu)
+
+    cfg = json.loads(pathlib.Path("perfbench/configs/le10.json").read_text())
+    p = plate.quarter_plate(*cfg["grid"], inner=cfg["inner_semi_axes"],
+                            outer=cfg["outer_semi_axes"],
+                            thickness=cfg["thickness"])
+    lam, mu = (cfg["E"] * cfg["nu"] / ((1 + cfg["nu"]) * (1 - 2 * cfg["nu"])),
+               cfg["E"] / (2 * (1 + cfg["nu"])))
+    D = d_matrix_from_lame(torch.full((p.nelem,), lam, dtype=torch.float64),
+                           torch.full((p.nelem,), mu, dtype=torch.float64))
+    facts = {}
+    rng = np.random.default_rng(SEED)
+    for dtype in (torch.float32, torch.float64):
+        op = build_operator(p.coords, p.conn, D.numpy(), p.fixed,
+                            elements.get(cfg["elem_type"]), dtype=dtype,
+                            device="cuda")
+        u = torch.as_tensor(rng.standard_normal((p.nnode, 3)), dtype=dtype,
+                            device="cuda")
+        got, again = op.apply(u), op.apply(u)
+        ref = op.apply_reference(u)
+        torch.cuda.synchronize()
+        gap = float((got - ref).abs().max()) / float(ref.abs().max())
+        require(gap <= SWEEP_RTOL[dtype],
+                f"general_apply {dtype}: relative gap {gap} to the plain "
+                "version")
+        require(torch.equal(got, again), "general_apply: two applies differ")
+        err = float((got - ref).abs().max())
+        kern = lambda: op.apply(u)  # noqa: E731
+        plain = lambda: op.apply_reference(u)  # noqa: E731
+        p1, k1, k2, p2 = (time_ms(plain, 5), time_ms(kern, 50),
+                          time_ms(kern, 50), time_ms(plain, 5))
+        g1, g2 = time_graph_ms(kern), time_graph_ms(kern)
+        cold = time_cold_ms(kern, flush)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                kern()
+            torch.cuda.synchronize()
+        split = {}
+        for ev in prof.key_averages():
+            for part in ("general_element_kernel", "general_node_kernel"):
+                if part in ev.key:
+                    split[part] = getattr(ev, "device_time_total",
+                                          getattr(ev, "cuda_time_total",
+                                                  0.0)) / 20 / 1e3
+        size = u.element_size()
+        nbytes, flops = roof.counts(p.nelem, p.nnode, 8, size)
+        bound_ms = roof.bound_s(p.nelem, p.nnode, 8, size) * 1e3
+        ms_graph = (g1 + g2) / 2
+        facts[dtype] = {"ms": (k1 + k2) / 2, "ms_graph": ms_graph,
+                        "ms_cold": cold, "plain_ms": (p1 + p2) / 2,
+                        "bound_ms": bound_ms,
+                        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                                     >= flops / PEAK_FLOPS[dtype]
+                                     else "operations"),
+                        "share": bound_ms / ms_graph, "rel_gap": gap,
+                        "max_abs_err": err, "profiler_ms": split}
+        print(f"[{card}] general_apply LE10 [{p.nelem} HEX8_G2, {p.nnode} "
+              f"nodes] {str(dtype)[6:]}: kernels {k1 * 1e3:.1f} / "
+              f"{k2 * 1e3:.1f} µs warm (events around wrapper calls), "
+              f"{g1 * 1e3:.1f} / {g2 * 1e3:.1f} µs (CUDA graph), "
+              f"{cold * 1e3:.1f} µs cold L2; device split {split} ms; plain "
+              f"{p1:.3f} / {p2:.3f} ms; bound {bound_ms * 1e3:.2f} µs "
+              f"({facts[dtype]['bound_by']}), share of the CUDA-graph time "
+              f"{bound_ms / ms_graph:.2%}; relative gap to plain {gap:.1e}")
+        del op, got, again, ref
+    cal = meshgen.hex_beam(G, G, G)
+    lam, mu = lame_from_E_nu(
+        np.exp(THETA_TRUE[0] + 0.1 * rng.standard_normal(CHAINS)),
+        0.28 + 0.05 * rng.standard_normal(CHAINS))
+    for dtype in (torch.float32, torch.float64):
+        op = build_operator(cal.coords, cal.conn, cal.elem_d_matrices(),
+                            cal.fix_mask(), cal.formulation(), dtype=dtype,
+                            device="cuda")
+        D = d_matrix_from_lame(torch.as_tensor(lam, dtype=dtype),
+                               torch.as_tensor(mu, dtype=dtype)).cuda()
+        op = op.with_D(D[:, None].expand(CHAINS, cal.nelem, 6, 6))
+        u = torch.as_tensor(rng.standard_normal((CHAINS, cal.nnode, 3)),
+                            dtype=dtype, device="cuda")
+        got, ref = op.apply(u), op.apply_reference(u)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        gap = err / float(ref.abs().max())
+        print(f"[{card}] general_apply at the general forward's shape "
+              f"[{CHAINS}, {cal.nnode}, 3], D [{CHAINS}, {cal.nelem}, 6, 6] "
+              f"expanded over the elements, {str(dtype)[6:]}: max abs "
+              f"error {err:.3e}, relative gap to plain {gap:.1e}")
+        require(gap <= SWEEP_RTOL[dtype],
+                f"general_apply {dtype} at [{CHAINS}, {cal.nnode}, 3]: "
+                f"relative gap {gap} to the plain version")
+        facts[dtype]["max_abs_err"] = max(facts[dtype]["max_abs_err"], err)
+        del op, got, ref
+    return facts
+
+
 def print_kernels(errs, theta_errs, batched_errs, facts, launches) -> None:
     """The kernels line: each kernel's facts, with the main paths' launch
-    counts (stencil_sweep, theta_sweep, theta_sweep_batched), or null for
-    each where no main path ran. errs etc. are lists of compare_* results:
-    the first at the single-device path's shape, whose float32 (1,1) error
-    counts, then any at the sharded paths' slab shapes, whose float32
-    errors count under every flag pair."""
-    rows = (
-        ("stencil_sweep", "stan_tpu_torch/csrc/stencil_sweep.cu",
-         "stan_tpu/fem/stencil.py:218", errs),
-        ("theta_sweep", "stan_tpu_torch/csrc/theta_sweep.cu",
-         "stan_tpu/fem/stencil.py:570", theta_errs),
-        ("theta_sweep_batched", "stan_tpu_torch/csrc/theta_sweep.cu",
-         "stan_tpu/fem/stencil.py:610", batched_errs),
-    )
-
+    counts (one for each of KERNELS), or null for each where no main path
+    ran. errs etc. are lists of compare_* results: the first at the
+    single-device path's shape, whose float32 (1,1) error counts, then any
+    at the sharded paths' slab shapes, whose float32 errors count under
+    every flag pair. The general apply's facts (general_apply_phase) hold
+    their own max_abs_err."""
     def max_err(main, *slabs):
         return max([main[(torch.float32, (1, 1))],
                     *(e for slab in slabs for (dtype, _), e in slab.items()
                       if dtype == torch.float32)])
 
+    rows = (
+        ("stencil_sweep", "stan_tpu_torch/csrc/stencil_sweep.cu",
+         "stan_tpu/fem/stencil.py:218", max_err(*errs)),
+        ("theta_sweep", "stan_tpu_torch/csrc/theta_sweep.cu",
+         "stan_tpu/fem/stencil.py:570", max_err(*theta_errs)),
+        ("theta_sweep_batched", "stan_tpu_torch/csrc/theta_sweep.cu",
+         "stan_tpu/fem/stencil.py:610", max_err(*batched_errs)),
+        ("general_apply", "stan_tpu_torch/csrc/general_apply.cu", None,
+         facts[("general_apply", torch.float32)]["max_abs_err"]),
+    )
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": source,
         "replaces": replaces,
         "launches": None if launches is None else launches[i],
-        "max_abs_err": max_err(*err),
+        "max_abs_err": err,
         **facts[(name, torch.float32)],
     } for i, (name, source, replaces, err) in enumerate(rows)]}))
 
@@ -2846,6 +2997,12 @@ def main() -> int:
                 card)
             del V
         del K
+    general_facts = general_apply_phase(card, flush)
+    facts[("general_apply", torch.float32)] = general_facts[torch.float32]
+    print(json.dumps({"general_apply": {
+        "source": "stan_tpu_torch/csrc/general_apply.cu",
+        "replaces": None, **{str(k)[6:]: v for k, v in
+                             general_facts.items()}}}))
     del flush
     if args.kernels:
         print_kernels([errs, shard_errs], [theta_errs],
@@ -2865,7 +3022,7 @@ def main() -> int:
         res = solve_linear_statics(model, device="cuda", timer=timer)
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
-    launches = stencil.launches
+    launches = launched("stencil_sweep")
     print(f"[{card}] solve {model.ndof} DOF: operator {res.operator}, "
           f"{res.iters} CG iterations, converged {res.converged}, "
           f"residual {res.residual:.3e}, certified f64 residual "
@@ -2979,8 +3136,8 @@ def main() -> int:
                       init_step=0.02, solve_stats=prob.fwd.stats)
     torch.cuda.synchronize()
     cal_s = time.perf_counter() - t0
-    theta_launches = stencil.theta_launches
-    batched_launches = stencil.theta_batched_launches
+    theta_launches = launched("theta_sweep")
+    batched_launches = launched("theta_sweep_batched")
     st = out.solve_stats
     run_s = out.warmup_seconds + sum(out.chunk_seconds)
     sps = CHAINS * sum(out.chunk_sizes) / sum(out.chunk_seconds)
@@ -3036,10 +3193,12 @@ def main() -> int:
 
     # -- the general path: direct solvers, nonlinear statics, the three
     # forward problems, HMC on a two-material beam ------------------------
-    direct_phase(card)
+    general_launches = direct_phase(card)
     nonlinear_phase(lin_u, card, args.profile)
-    batched_launches += three_forwards_phase(
-        cal_model, (obs_nodes, obs_dirs, y, sigma), card)
+    more = three_forwards_phase(cal_model, (obs_nodes, obs_dirs, y, sigma),
+                                card)
+    batched_launches += more[0]
+    general_launches += more[1]
     two_material_phase(theta0, card)
     # -- the domain-sharded paths: x-slab stencil apply and CG, the general
     # sharded operator, the chains x domain calibration forward -----------
@@ -3080,7 +3239,8 @@ def main() -> int:
     print_kernels([errs, shard_errs], [theta_errs],
                   [batched_errs, shard_batched_errs, *row_batched_errs],
                   facts,
-                  (launches, theta_launches, batched_launches))
+                  (launches, theta_launches, batched_launches,
+                   general_launches))
     print(json.dumps({"ok": True, "device": device()}))
     return 0
 

@@ -52,6 +52,13 @@ _ENTRIES = {
         "theta_sweep_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "theta_sweep_f64": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
+    "general_apply": {
+        # u, m, conn, dN, detJw, D, inc, f, out, B, E, nn, G, nnode, maxdeg,
+        # D's (system, element) strides, dN's and detJw's (element, Gauss
+        # point) strides, stream
+        "general_apply_f32": [_P] * 9 + [_I] * 12 + [_P],
+        "general_apply_f64": [_P] * 9 + [_I] * 12 + [_P],
+    },
 }
 
 _libs: dict = {}

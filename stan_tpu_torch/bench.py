@@ -95,10 +95,9 @@ def device_info(dev: torch.device) -> dict:
 
 
 def launch_counts() -> dict:
-    from stan_tpu_torch.fem import stencil
+    from stan_tpu_torch.fem import launches
 
-    return dict(zip(KERNELS, (stencil.launches, stencil.theta_launches,
-                              stencil.theta_batched_launches)))
+    return {k: launches.counts[k] for k in KERNELS}
 
 
 def _sync(dev: torch.device) -> None:

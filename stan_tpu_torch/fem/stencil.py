@@ -38,7 +38,6 @@ certified solve (solvers/cg.pcg_certified).
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import dataclasses
 import itertools
@@ -50,7 +49,7 @@ import torch.nn.functional as F
 
 from stan_tpu_torch.core.model import FEModel
 from stan_tpu_torch import _build, native
-from stan_tpu_torch.fem import hostops, structured
+from stan_tpu_torch.fem import hostops, launches, structured
 from stan_tpu_torch.fem.operator import resolve_device
 from stan_tpu_torch.fem.structured import StructuredOperator
 
@@ -61,38 +60,6 @@ _OFFSETS = tuple(itertools.product((-1, 0, 1), repeat=3))
 _ALLOWED = {"F": (0, 1), "L": (0,), "H": (1,)}
 _SIGS = tuple(itertools.product("FLH", repeat=3))
 _INTERIOR = ("F", "F", "F")
-
-# Kernel launches on CUDA tensors since the last reset, one count per
-# kernel wrapper: stencil_sweep, theta_sweep, theta_sweep_batched; and the
-# same launches by (wrapper, is_low, is_high), the x-face flags. A replayed
-# CUDA graph adds the launches it holds (add_launches).
-launches = 0
-theta_launches = 0
-theta_batched_launches = 0
-flag_launches = collections.Counter()
-
-
-def launch_counts() -> collections.Counter:
-    """Every launch counter in one Counter: each wrapper's count under its
-    name, and flag_launches under its own keys."""
-    counts = collections.Counter(flag_launches)
-    counts.update(stencil_sweep=launches, theta_sweep=theta_launches,
-                  theta_sweep_batched=theta_batched_launches)
-    return counts
-
-
-def add_launches(delta: dict, times: int = 1) -> None:
-    """Add times x delta (launch_counts' form) to the counters: the
-    launches of a replayed CUDA graph, whose kernels no wrapper call
-    launches, and (times=-1) the calls that recorded the graph, which
-    launched nothing."""
-    global launches, theta_launches, theta_batched_launches
-    launches += times * delta.get("stencil_sweep", 0)
-    theta_launches += times * delta.get("theta_sweep", 0)
-    theta_batched_launches += times * delta.get("theta_sweep_batched", 0)
-    for key, n in delta.items():
-        if isinstance(key, tuple):
-            flag_launches[key] += times * n
 
 
 def signature_tables(ke: np.ndarray) -> dict:
@@ -234,9 +201,7 @@ def stencil_sweep(up: torch.Tensor, table: torch.Tensor, is_low,
                   NNZp - 2, int(bool(is_low)), int(bool(is_high)),
                   ctypes.c_void_p(stream))
     _build.check(code, "stencil_sweep launch", "stencil_sweep")
-    global launches
-    launches += 1
-    flag_launches["stencil_sweep", int(bool(is_low)), int(bool(is_high))] += 1
+    launches.count("stencil_sweep", is_low, is_high)
     return out
 
 
@@ -346,9 +311,7 @@ def theta_sweep(up: torch.Tensor, tables2: torch.Tensor, coef: torch.Tensor,
         raise ValueError(f"theta_sweep: unsupported device {up.device}")
     _check_theta("theta_sweep", up[None], tables2, coef[None])
     out = _launch_theta(up[None], tables2, coef[None], is_low, is_high)[0]
-    global theta_launches
-    theta_launches += 1
-    flag_launches["theta_sweep", int(bool(is_low)), int(bool(is_high))] += 1
+    launches.count("theta_sweep", is_low, is_high)
     return out
 
 
@@ -372,10 +335,7 @@ def theta_sweep_batched(up_b: torch.Tensor, tables2: torch.Tensor,
                          f"{up_b.device}")
     _check_theta("theta_sweep_batched", up_b, tables2, coef)
     out = _launch_theta(up_b, tables2, coef, is_low, is_high)
-    global theta_batched_launches
-    theta_batched_launches += 1
-    flag_launches["theta_sweep_batched", int(bool(is_low)),
-                  int(bool(is_high))] += 1
+    launches.count("theta_sweep_batched", is_low, is_high)
     return out
 
 

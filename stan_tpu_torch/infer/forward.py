@@ -288,7 +288,7 @@ class ForwardProblem:
         return self.op0.conn.shape[0]
 
     def operator_with(self, D_e: torch.Tensor) -> StiffnessOperator:
-        return dataclasses.replace(self.op0, D=D_e)
+        return self.op0.with_D(D_e)
 
     def _pcg(self, op, rhs) -> cg_mod.CGResult:
         return cg_mod.pcg(op.apply, rhs, diag=op.diagonal(), tol=self.cg_tol,

@@ -67,7 +67,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from stan_tpu_torch.fem import stencil
+from stan_tpu_torch.fem import launches
 from stan_tpu_torch.utils.timing import span
 
 # CG iterations per replayed CUDA graph. The host reads the stopping state
@@ -255,7 +255,7 @@ class _Blocks:
     def capture(self, A) -> "_Blocks":
         """Warm step up on a side stream, then record it as a CUDA graph.
         The wrapper calls that recorded it launched nothing, so their
-        counts leave fem/stencil's counters and each replay adds them."""
+        counts leave fem/launches' counters and each replay adds them."""
         device = self.x.device
         with span("cg.capture"), torch.cuda.device(device):
             side = torch.cuda.Stream(device)
@@ -263,7 +263,7 @@ class _Blocks:
             with torch.cuda.stream(side):
                 self.step(A)
                 side.synchronize()
-                before = stencil.launch_counts()
+                before = launches.snapshot()
                 self.graph = torch.cuda.CUDAGraph()
                 self.graph.capture_begin()
                 try:
@@ -271,8 +271,8 @@ class _Blocks:
                 finally:
                     self.graph.capture_end()
             torch.cuda.current_stream(device).wait_stream(side)
-        self.launches = stencil.launch_counts() - before
-        stencil.add_launches(self.launches, -1)
+        self.launches = launches.snapshot() - before
+        launches.add(self.launches, -1)
         return self
 
     def replay(self, A) -> None:
@@ -280,7 +280,7 @@ class _Blocks:
             self.step(A)
         else:
             self.graph.replay()
-            stencil.add_launches(self.launches)
+            launches.add(self.launches)
 
 
 # The last capture: (its key, a weak reference to its operator, _Blocks).

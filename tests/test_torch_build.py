@@ -37,7 +37,8 @@ def test_header_edit_changes_every_key(csrc):
     header = csrc / "sweep_tile.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = keys(csrc)
-    assert set(after) == set(before) == {"stencil_sweep", "theta_sweep"}
+    assert set(after) == set(before) == {"general_apply", "stencil_sweep",
+                                         "theta_sweep"}
     assert all(after[k] != before[k] for k in before)
 
 
@@ -48,7 +49,8 @@ def test_new_header_changes_every_key(csrc):
     assert all(after[k] != before[k] for k in before)
 
 
-@pytest.mark.parametrize("edited", ["stencil_sweep", "theta_sweep"])
+@pytest.mark.parametrize("edited", ["general_apply", "stencil_sweep",
+                                    "theta_sweep"])
 def test_source_edit_changes_only_its_key(csrc, edited):
     before = keys(csrc)
     src = csrc / f"{edited}.cu"
@@ -56,3 +58,13 @@ def test_source_edit_changes_only_its_key(csrc, edited):
     after = keys(csrc)
     for stem in before:
         assert (after[stem] != before[stem]) == (stem == edited)
+
+
+def test_every_source_has_its_entry_points():
+    """Each csrc/*.cu is bound: its float and double entries and its error
+    string are declared there with C linkage, and listed in _ENTRIES."""
+    assert set(_build._ENTRIES) == {src.stem for src in _build.sources()}
+    for src in _build.sources():
+        text = src.read_text()
+        for name in (*_build._ENTRIES[src.stem], f"{src.stem}_error_string"):
+            assert 'extern "C"' in text and f" {name}(" in text, name

@@ -13,7 +13,7 @@ import torch
 
 from stan_tpu_torch.core import meshgen
 from stan_tpu_torch.analysis.linear import solve_linear_statics
-from stan_tpu_torch.fem import stencil
+from stan_tpu_torch.fem import launches, stencil
 
 pytestmark = pytest.mark.gpu
 
@@ -39,9 +39,9 @@ def test_kernel_matches_plain_version(n, kw, flags, dtype):
     rng = np.random.default_rng(sum(n))
     up = torch.as_tensor(rng.standard_normal(
         (3, *(k + 2 for k in op.node_shape))), dtype=dtype, device="cuda")
-    before = stencil.launches
+    before = launches.counts["stencil_sweep"]
     f = stencil.stencil_sweep(up, op.table, *flags)
-    assert stencil.launches == before + 1
+    assert launches.counts["stencil_sweep"] == before + 1
     f_ref = stencil.stencil_sweep_reference(up, op.table, *flags)
     torch.cuda.synchronize()
     err = float((f - f_ref).abs().max())
@@ -87,12 +87,12 @@ def test_kernel_refuses_bad_input():
 def test_cuda_solve_matches_cpu_float64():
     _need_cuda()
     m_gpu, m_cpu = meshgen.hex_beam(8, 5, 4), meshgen.hex_beam(8, 5, 4)
-    before = stencil.launches
+    before = launches.counts["stencil_sweep"]
     res = solve_linear_statics(m_gpu, device="cuda")
     ref = solve_linear_statics(m_cpu, device="cpu", dtype=torch.float64)
     assert res.operator == ref.operator == "stencil"
     assert res.converged and res.true_residual <= 1e-6
-    assert stencil.launches - before >= res.iters
+    assert launches.counts["stencil_sweep"] - before >= res.iters
     scale = np.abs(ref.u).max()
     np.testing.assert_allclose(res.u_certified, ref.u, atol=1e-5 * scale)
     assert np.isfinite(res.stress).all() and np.isfinite(res.reactions).all()
@@ -114,13 +114,14 @@ def test_cuda_solve_is_certified_by_the_host_twin(monkeypatch):
         return sweep(up, *args)
 
     monkeypatch.setattr(stencil, "stencil_sweep", counted)
-    before = stencil.launches
+    before = launches.counts["stencil_sweep"]
     res = solve_linear_statics(m, device="cuda")
     assert res.operator == "stencil" and res.converged
     # The wrapper sees the calls outside the CG's CUDA graph and the ones
     # that recorded it; the counter also counts the graph's replays.
     assert set(dtypes) == {torch.float32}
-    assert stencil.launches - before >= res.iters + res.refine_iters
+    assert (launches.counts["stencil_sweep"] - before
+            >= res.iters + res.refine_iters)
     twin = hostops.masked_f64_apply(m, op)
     b = op.free_mask.cpu().double() * op.to_grid(
         torch.as_tensor(m.load_vector())).cpu()
@@ -158,11 +159,11 @@ def _theta_case(n, kw, dtype, B, seed, sx=None):
 def test_theta_kernels_match_plain_version(n, kw, flags, dtype):
     _need_cuda()
     up, t2, coef = _theta_case(n, kw, dtype, 3, sum(n))
-    before = (stencil.theta_launches, stencil.theta_batched_launches)
+    before = launches.snapshot()
     f_b = stencil.theta_sweep_batched(up, t2, coef, *flags)
     f_1 = stencil.theta_sweep(up[1], t2, coef[1], *flags)
-    assert (stencil.theta_launches, stencil.theta_batched_launches) == (
-        before[0] + 1, before[1] + 1)
+    delta = launches.snapshot() - before
+    assert (delta["theta_sweep"], delta["theta_sweep_batched"]) == (1, 1)
     ref = stencil.theta_sweep_reference(up, t2, coef, *flags)
     torch.cuda.synchronize()
     for b in range(3):
@@ -240,14 +241,15 @@ def test_chain_batched_solve_matches_cpu_float64():
     gpu = forward.build_forward(m, device="cuda", cg_tol=1e-6)
     cpu = forward.build_forward(m, dtype=torch.float64, device="cpu",
                                 cg_tol=1e-10)
-    before = stencil.theta_batched_launches
+    before = launches.counts["theta_sweep_batched"]
     u = forward.displacement_fn(gpu, m.nelem)(
         torch.as_tensor(thetas, device="cuda")).cpu().numpy()
     ref = forward.displacement_fn(cpu, m.nelem)(
         torch.as_tensor(thetas)).numpy()
     st = gpu.stats
     assert st.forward_solves == 16 and st.forward_unconverged == 0
-    assert stencil.theta_batched_launches - before >= st.forward_loop_iters
+    assert (launches.counts["theta_sweep_batched"] - before
+            >= st.forward_loop_iters)
     for c in range(16):
         assert np.abs(u[c] - ref[c]).max() <= 1e-4 * np.abs(ref[c]).max()
 
@@ -305,11 +307,11 @@ def test_cli_calibrate_on_cuda(tmp_path, monkeypatch, sampler):
         smc.run_smc, n_mcmc=1, max_stages=2))
     path = str(tmp_path / "beam.STdb")
     stdb.write(meshgen.hex_beam(4, 4, 4), path)
-    before = stencil.theta_batched_launches
+    before = launches.counts["theta_sweep_batched"]
     assert cli.main(["calibrate", path, "--synthetic", "--sampler", sampler,
                      "--chains", "4", "--samples", "5",
                      "--device", "cuda"]) == 0
-    assert stencil.theta_batched_launches > before
+    assert launches.counts["theta_sweep_batched"] > before
 
 
 def test_nuts_transition_on_cuda():
@@ -423,9 +425,10 @@ def test_sharded_apply_on_cuda_matches_cpu_slabs(dtype):
     got = {}
     for dev in ("cuda", "cpu"):
         op = ss.build_sharded_stencil_operator(m, 3, dtype=dtype, device=dev)
-        before = stencil.launches
+        before = launches.counts["stencil_sweep"]
         got[dev] = ss.sharded_apply(_mesh(dev, 1, 3), op, u.to(dev)).cpu()
-        assert stencil.launches - before == (3 if dev == "cuda" else 0)
+        assert (launches.counts["stencil_sweep"] - before
+                == (3 if dev == "cuda" else 0))
     err = float((got["cuda"] - got["cpu"]).abs().max())
     assert err <= RTOL[dtype] * float(got["cpu"].abs().max())
 
@@ -449,14 +452,14 @@ def test_sharded_theta_apply_on_cuda_matches_cpu_slabs(dtype):
         for dev in ("cuda", "cpu"):
             mesh = _mesh(dev, 1, 3)
             fwd = forward.build_sharded_stencil_forward(m, mesh, dtype=dtype)
-            before = (stencil.theta_launches, stencil.theta_batched_launches)
+            before = launches.snapshot()
             out = fwd._sweeps(coef.to(dev), mesh.split(u.to(dev), 2,
                                                        chains=True), True)
             got[dev] = out.gather().cpu()
             if dev == "cuda":
-                assert (stencil.theta_launches - before[0],
-                        stencil.theta_batched_launches - before[1]) == (
-                            (0, 3) if chains == 2 else (3, 0))
+                delta = launches.snapshot() - before
+                assert (delta["theta_sweep"], delta["theta_sweep_batched"]) \
+                    == ((0, 3) if chains == 2 else (3, 0))
         err = float((got["cuda"] - got["cpu"]).abs().max())
         assert err <= RTOL[dtype] * float(got["cpu"].abs().max())
 
@@ -556,10 +559,10 @@ def test_placed_posterior_on_cuda_matches_unplaced():
     solved as one batch on the card (theta_sweep_batched), the log
     posterior and gradient within 1e-10 of the unplaced problem's."""
     _need_cuda()
-    before = stencil.theta_batched_launches
+    before = launches.counts["theta_sweep_batched"]
     placed = _placed_vs_unplaced(_mesh("cuda:0", 2, 1))
     assert placed.row_fwds == ()
-    assert stencil.theta_batched_launches > before
+    assert launches.counts["theta_sweep_batched"] > before
 
 
 def test_placed_posterior_across_cards():
@@ -677,9 +680,9 @@ def test_exact_operator_on_cuda_matches_apply_numpy(n, kw):
     tables, deltas = stencil.exact_tables(m)
     free = ex.free_mask.cpu().numpy()
     u = np.random.default_rng(sum(n)).standard_normal((3, *ex.node_shape))
-    before = stencil.launches
+    before = launches.counts["stencil_sweep"]
     f = ex.apply(torch.as_tensor(u, device="cuda")).cpu().numpy()
-    assert stencil.launches == before + 1
+    assert launches.counts["stencil_sweep"] == before + 1
     want = free * stencil.apply_numpy(tables, deltas, free * u) + (
         1.0 - free) * u
     assert np.abs(f - want).max() <= 1e-12 * np.abs(want).max()
@@ -702,11 +705,12 @@ def test_certified_solve_on_cuda_matches_cpu():
                                             device=dev)
         b = ex.free_mask * ex.to_grid(torch.as_tensor(
             m.load_vector(), dtype=torch.float64, device=dev))
-        before = stencil.launches
+        before = launches.counts["stencil_sweep"]
         res = cg.pcg_certified(op.apply, b, ex.apply, diag=op.diagonal(),
                                tol=1e-6, ndof=3 * m.nnode)
         if dev == "cuda":
-            assert stencil.launches - before >= res.inner_iters + res.cycles
+            assert (launches.counts["stencil_sweep"] - before
+                    >= res.inner_iters + res.cycles)
         host = hostops.masked_f64_apply(m, op)
         b_np = b.cpu().numpy()
         true_rel = np.linalg.norm(b_np - host(res.u.cpu().numpy())) / (
@@ -746,12 +750,12 @@ def test_graph_cg_equals_the_eager_loop(n):
     _need_cuda()
     op, diag, b = _graph_case(n)
     cg.pcg(op.apply, b, diag=diag, tol=1e-6)  # captures
-    before = stencil.launches
+    before = launches.counts["stencil_sweep"]
     eager = cg.pcg(op.apply, b, diag=diag, tol=1e-6, dot=_eager_dot)
-    eager_launches = stencil.launches - before
-    before = stencil.launches
+    eager_launches = launches.counts["stencil_sweep"] - before
+    before = launches.counts["stencil_sweep"]
     res = cg.pcg(op.apply, b, diag=diag, tol=1e-6)
-    graph_launches = stencil.launches - before
+    graph_launches = launches.counts["stencil_sweep"] - before
     assert eager.converged and eager.iters > cg.BLOCK
     assert (res.iters, res.residual, res.converged, res.diverged) == (
         eager.iters, eager.residual, eager.converged, eager.diverged)
@@ -795,3 +799,175 @@ def test_pcg_with_dot_takes_the_eager_loop(monkeypatch):
     res = cg.pcg(op.apply, b, diag=diag, tol=1e-6, dot=_eager_dot)
     assert res.converged and res.frozen == 0
     assert res.reads == res.iters + 2
+
+
+# The general operator's kernels (csrc/general_apply.cu) against its plain
+# version: the same products summed in other orders (the kernel sums each
+# Gauss point's H, σ and force in registers and the Gauss points by
+# shuffles; the plain version through cuBLAS's batched products), so RTOL
+# of the largest entry.
+@pytest.mark.parametrize("B", [None, 1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("form", ["HEX8_G1", "HEX8_G2", "TET4_G1",
+                                  "TET4_G2"])
+@pytest.mark.parametrize("kind", ["beam", "plate"])
+def test_general_apply_matches_plain_version(kind, form, dtype, B):
+    from general_apply_cases import case
+
+    _need_cuda()
+    op, u = case(kind, form, dtype, "cuda", B=B)
+    before = launches.counts["general_apply"]
+    got = op.apply(u)
+    ref = op.apply_reference(u)
+    torch.cuda.synchronize()
+    assert launches.counts["general_apply"] == before + 1
+    assert got.shape == u.shape and got.dtype == dtype
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= RTOL[dtype] * float(
+        ref.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_general_apply_shares_one_d_over_systems(dtype):
+    """D [E, 6, 6] with u [B, nnode, 3]: every system sees the one D; and
+    a D per system expanded over the elements (element stride 0, as the
+    general forward passes a homogeneous material)."""
+    import dataclasses
+
+    from general_apply_cases import case
+
+    _need_cuda()
+    op, u = case("plate", "HEX8_G2", dtype, "cuda")
+    us = torch.stack([u, 2.0 * u, -u])
+    got = op.apply(us)
+    torch.cuda.synchronize()
+    for b in range(3):
+        ref = op.apply_reference(us[b])
+        assert float((got[b] - ref).abs().max()) <= RTOL[dtype] * float(
+            ref.abs().max())
+    op3, u3 = case("plate", "HEX8_G2", dtype, "cuda", B=3)
+    op3 = dataclasses.replace(op3, D=op3.D[:, :1].expand(-1, op3.D.shape[1],
+                                                         -1, -1))
+    got, ref = op3.apply(u3), op3.apply_reference(u3)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= RTOL[dtype] * float(
+        ref.abs().max())
+
+
+def test_general_apply_gives_the_same_bits_twice():
+    """No atomics: two applies of one input agree to the bit, and each
+    counts one apply."""
+    from general_apply_cases import case
+
+    _need_cuda()
+    for kind, form, B in (("plate", "HEX8_G2", None), ("plate", "HEX8_G2", 3),
+                          ("beam", "TET4_G2", 3)):
+        op, u = case(kind, form, torch.float32, "cuda", B=B)
+        before = launches.counts["general_apply"]
+        a, b = op.apply(u), op.apply(u)
+        torch.cuda.synchronize()
+        assert launches.counts["general_apply"] == before + 2
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_general_apply_refuses_bad_input_on_cuda():
+    from stan_tpu_torch.fem import operator as general
+    from general_apply_cases import case
+
+    _need_cuda()
+    op, u = case("beam", "HEX8_G2", torch.float32, "cuda")
+    conn32, inc32 = op.index32()
+    args = dict(u=u, free_mask=op.free_mask, conn32=conn32, dN=op.dN,
+                detJw=op.detJw, D=op.D, inc32=inc32)
+    flat = torch.zeros(op.dN.numel() + 1, device="cuda")
+    for error, change in (
+            (TypeError, {"u": u.half()}),
+            (TypeError, {"conn32": op.conn}),
+            (ValueError, {"u": u.T.contiguous().T}),
+            (ValueError, {"u": u[:-1].contiguous()}),
+            (ValueError, {"dN": op.dN[:, :2]}),
+            (ValueError, {"dN": flat[1:].view(op.dN.shape)}),
+            (ValueError, {"free_mask": op.free_mask.cpu()}),
+            (ValueError, {"D": op.D.clone().requires_grad_()})):
+        with pytest.raises(error):
+            general.general_apply(**{**args, **change})
+
+
+def test_general_forward_solves_share_the_int32_indices():
+    """Each solve of the general forward applies the operator that
+    operator_with builds for its D; all of them launch the kernels on the
+    one int32 conn and incidence, made at the first CUDA apply."""
+    import dataclasses
+
+    from stan_tpu_torch.infer import forward
+    from general_apply_cases import case
+
+    _need_cuda()
+    op, u = case("plate", "HEX8_G2", torch.float32, "cuda", B=2)
+    fwd = forward.ForwardProblem(op0=dataclasses.replace(op, D=op.D[0]),
+                                 f0=op.free_mask, cg_tol=1e-6,
+                                 cg_maxiter=10)
+    a, b = fwd.operator_with(op.D), fwd.operator_with(2.0 * op.D)
+    got_a, got_b = a.apply(u), b.apply(u)
+    torch.cuda.synchronize()
+    assert a.index32()[0] is b.index32()[0] is fwd.op0.index32()[0]
+    assert a.index32()[1] is b.index32()[1]
+    assert a.index32()[0].data_ptr() == b.index32()[0].data_ptr()
+    m = op.free_mask
+    assert float((got_b - 2.0 * got_a + (1.0 - m) * u).abs().max()) <= (
+        RTOL[torch.float32] * float(got_b.abs().max()))
+
+
+def test_graph_cg_on_the_general_operator_equals_the_eager_loop():
+    """The CUDA graph CG on the LE10 plate's general operator against the
+    loop that reads every iteration: the same iterations, residual and
+    flags, u to the bit; the replays count their applies."""
+    from stan_tpu_torch.solvers import cg
+    from general_apply_cases import case
+
+    _need_cuda()
+    op, u = case("plate", "HEX8_G2", torch.float32, "cuda")
+    b = (op.free_mask * u).contiguous()
+    diag = op.diagonal()
+    cg.pcg(op.apply, b, diag=diag, tol=1e-6)  # captures
+    before = launches.counts["general_apply"]
+    eager = cg.pcg(op.apply, b, diag=diag, tol=1e-6, dot=_eager_dot)
+    eager_launches = launches.counts["general_apply"] - before
+    before = launches.counts["general_apply"]
+    res = cg.pcg(op.apply, b, diag=diag, tol=1e-6)
+    graph_launches = launches.counts["general_apply"] - before
+    assert eager.converged and eager.iters > cg.BLOCK
+    assert (res.iters, res.residual, res.converged, res.diverged) == (
+        eager.iters, eager.residual, eager.converged, eager.diverged)
+    assert torch.equal(res.u.view(torch.int32), eager.u.view(torch.int32))
+    assert eager_launches == eager.iters + 1
+    assert graph_launches == eager_launches + res.frozen
+
+
+def test_cuda_general_solve_runs_the_kernels(monkeypatch):
+    """A solve on a curved mesh (the general operator) on the card: every
+    apply goes through the kernels, none through the plain version; the
+    answer is certified and agrees with the CPU's float64 solve."""
+    import dataclasses
+
+    from stan_tpu_torch.fem import operator as general
+    from general_apply_cases import mesh
+
+    _need_cuda()
+    coords, _, _ = mesh("beam", "HEX8_G2")
+    m = dataclasses.replace(meshgen.hex_beam(4, 3, 2, lx=4.0, ly=3.0,
+                                             lz=2.0), coords=coords)
+    ref = solve_linear_statics(m, device="cpu", dtype=torch.float64)
+
+    def plain(self, u):
+        raise AssertionError("the plain apply ran on the card")
+
+    monkeypatch.setattr(general.StiffnessOperator, "apply_reference", plain)
+    before = launches.counts["general_apply"]
+    res = solve_linear_statics(m, device="cuda")
+    assert res.operator == ref.operator == "general"
+    assert res.converged and res.true_residual <= 1e-6
+    assert (launches.counts["general_apply"] - before
+            >= res.iters + res.refine_iters)
+    scale = np.abs(ref.u).max()
+    np.testing.assert_allclose(res.u_certified, ref.u, atol=1e-5 * scale)

@@ -18,7 +18,7 @@ from stan_tpu.core import meshgen
 from stan_tpu.core.model import Material
 from stan_tpu.fem import stencil as jstencil
 from stan_tpu.fem import structured as jstructured
-from stan_tpu_torch.fem import stencil
+from stan_tpu_torch.fem import launches, stencil
 
 # (nelems, hex_beam keywords): G2 and G1, unit and non-uniform spacing.
 MESHES = [
@@ -89,11 +89,11 @@ def test_sweep_on_cpu_takes_plain_version():
     _, _, op = _pair(*MESHES[0])
     up = F.pad(torch.as_tensor(_rand_grid((3,) + op.node_shape, 7)),
                (1, 1, 1, 1, 1, 1))
-    before = stencil.launches
+    before = launches.snapshot()
     for lo, hi in ((1, 1), (0, 1), (1, 0), (0, 0)):
         assert torch.equal(stencil.stencil_sweep(up, op.table, lo, hi),
                            stencil.stencil_sweep_reference(up, op.table, lo, hi))
-    assert stencil.launches == before
+    assert launches.snapshot() == before
 
 
 @pytest.mark.parametrize("n,kw", MESHES[2:], ids=IDS[2:])

@@ -25,7 +25,7 @@ import jax.numpy as jnp
 from stan_tpu.core import meshgen
 from stan_tpu.fem import stencil as jstencil
 from stan_tpu.fem import structured as jstructured
-from stan_tpu_torch.fem import stencil
+from stan_tpu_torch.fem import launches, stencil
 from stan_tpu_torch.infer import forward
 
 F64 = torch.float64
@@ -119,13 +119,13 @@ def test_cpu_tensors_take_plain_version_uncounted():
     _, _, t2, padded = _odd_grid()
     up = torch.as_tensor(_rand((3, 3) + padded, seed=4))
     coef = torch.as_tensor(np.stack([LAMS, MUS], axis=1))
-    before = (stencil.theta_launches, stencil.theta_batched_launches)
+    before = launches.snapshot()
     assert torch.equal(stencil.theta_sweep_batched(up, t2, coef, 1, 1),
                        stencil.theta_sweep_reference(up, t2, coef, 1, 1))
     assert torch.equal(
         stencil.theta_sweep(up[1], t2, coef[1], 0, 1),
         stencil.theta_sweep_reference(up[1:2], t2, coef[1:2], 0, 1)[0])
-    assert (stencil.theta_launches, stencil.theta_batched_launches) == before
+    assert launches.snapshot() == before
 
 
 def test_pack_theta_tables_layout_and_shape_refusals():
