@@ -25,7 +25,7 @@ theta_sweep (one grid) and theta_sweep_batched (a [B, ...] batch of chains,
 one launch) compute it in one pass, on the kernel of csrc/theta_sweep.cu,
 with the coefficients read from device memory; theta_sweep_reference is
 their plain version. The solve's gradient in (λ, μ) takes theta_coef_grads
-(infer/forward._StencilSolve).
+(infer/forward.StencilForwardProblem.param_grads).
 
 exact_tables builds the float64 tables from the float64 element stiffness
 on the host, whatever the operator dtype, and apply_numpy applies them on

@@ -60,16 +60,8 @@ class CalibrationProblem:
     def __post_init__(self):
         # Each observation's index into the forward's layout, on each
         # forward's device once, so the gather in u_obs copies nothing from
-        # the host: (node, dir) for the general forward, (dir, i, j, k) on
-        # the node grid of the structured ones (meshgen numbering: node =
-        # i*nny*nnz + j*nnz + k).
-        nodes, dirs = self.obs_idx[:, 0], self.obs_idx[:, 1]
-        if isinstance(self.fwd, fwd_mod.ForwardProblem):
-            idx = np.stack([nodes, dirs])
-        else:
-            _, nny, nnz = self.fwd.node_shape
-            idx = np.stack([dirs, nodes // (nny * nnz),
-                            (nodes // nnz) % nny, nodes % nnz])
+        # the host.
+        idx = self.fwd.obs_index(self.obs_idx[:, 0], self.obs_idx[:, 1])
         self._on = {
             f.device: (f, tuple(torch.as_tensor(idx, device=f.device)),
                        self.y.to(f.device))

@@ -26,9 +26,12 @@ forwards per row of a mesh, for a calibration whose chains alone are placed
 (calibrate.make_problem(mesh=)).
 
 Gradients flow through each solve implicitly, as jax.lax.custom_linear_solve
-(symmetric=True) gives them in the reference: a torch.autograd.Function
-whose backward is one more chain-batched PCG solve with the same SPD
-operator on the masked cotangent (an adjoint solve), not CG unrolled.
+(symmetric=True) gives them in the reference: one torch.autograd.Function
+(_ImplicitSolve) for the three forwards, whose backward is one more
+chain-batched PCG solve with the same SPD operator on the masked cotangent
+(an adjoint solve), not CG unrolled. The forwards differ only in what
+_ImplicitForward asks of them: their operator for a batch of parameters,
+the parameters' cotangents, and their layout.
 Every solve records its iterations, convergence and host time in the
 problem's SolveStats, and runs in the span "forward.solve" or
 "forward.adjoint" (utils/timing.span: on the profiler's timeline while one
@@ -154,8 +157,103 @@ class SummedSolveStats(SolveStats):
         return dict(zip(counts, summed.tolist()))
 
 
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class _ImplicitForward:
+    """What the three single-device forwards share: the CG settings, the
+    SolveStats, one chain-batched PCG and the implicitly differentiable
+    solve (_ImplicitSolve). Each forward supplies its operator and layout:
+
+    - system(*params) -> (matvec, diag): the masked SPD action M K(p) (M u)
+      + (I - M) u and its Jacobi diagonal for one chain batch of
+      parameters p;
+    - param_grads(params, w, Mu): the cotangents of p, -⟨w, ∂K/∂p Mu⟩ per
+      chain, from the masked adjoint w and the masked solution Mu;
+    - homogeneous(lam, mu, s): solve's arguments for one material (λ, μ
+      [B]) over every element and the unit load scaled by s [B];
+    - free_mask, f0, to_flat (the layout -> [..., nnode, 3]) and obs_index
+      (the index of (node, dir) observations into the layout).
+    """
+
+    cg_tol: float
+    cg_maxiter: int
+    stats: SolveStats = dataclasses.field(default_factory=SolveStats)
+
+    @property
+    def dtype(self):
+        return self.f0.dtype
+
+    @property
+    def device(self):
+        return self.f0.device
+
+    @property
+    def ndof(self) -> int:
+        return self.free_mask.numel()
+
+    def _pcg(self, params, rhs) -> cg_mod.CGResult:
+        matvec, diag = self.system(*params)
+        return cg_mod.pcg(matvec, rhs, diag=diag, tol=self.cg_tol,
+                          maxiter=self.cg_maxiter, ndof=self.ndof,
+                          batched=True)
+
+    def _solve(self, f, *params) -> torch.Tensor:
+        if f is None:
+            f = self.f0.expand(params[0].shape[0], *self.f0.shape)
+        return _ImplicitSolve.apply(self, f, *params)
+
+
+class _ImplicitSolve(torch.autograd.Function):
+    """u = A(p)⁻¹ (M f), A = M K(p) M + (I - M), chain-batched, for the
+    parameters p of any single-device forward (prob.system).
+
+    Backward: w = A⁻¹ (M ū) (the adjoint solve; A is symmetric), then
+    ∂/∂f = M w and ∂/∂p = -⟨M w, ∂K/∂p (M u)⟩ per chain (prob.param_grads).
+    u vanishes on the fixed DOFs whatever p is, so masking the cotangent
+    changes no gradient. Both solves record their iterations and
+    convergence in the problem's SolveStats.
+    """
+
+    @staticmethod
+    def forward(ctx, prob, f, *params):
+        with span("forward.solve"):
+            res = prob._pcg(params, (prob.free_mask * f).contiguous())
+        prob.stats.record("forward", res)
+        ctx.save_for_backward(res.u, *params)
+        ctx.prob = prob
+        return res.u
+
+    @staticmethod
+    def backward(ctx, ct):
+        u, *params = ctx.saved_tensors
+        prob = ctx.prob
+        m = prob.free_mask
+        with span("forward.adjoint"):
+            res = prob._pcg(params, (m * ct).contiguous())
+        prob.stats.record("adjoint", res)
+        w = m * res.u
+        grads = (None,) * len(params)
+        if any(ctx.needs_input_grad[2:]):
+            grads = prob.param_grads(params, w, m * u)
+        return None, (w if ctx.needs_input_grad[1] else None), *grads
+
+
+class _NodeGrid:
+    """The layout of the structured forwards: [..., 3, nnx, nny, nnz]."""
+
+    def to_flat(self, u_grid: torch.Tensor) -> torch.Tensor:
+        """[..., 3, nnx, nny, nnz] -> [..., nnode, 3]."""
+        return u_grid.movedim(-4, -1).reshape(*u_grid.shape[:-4], -1, 3)
+
+    def obs_index(self, nodes: np.ndarray, dirs: np.ndarray) -> np.ndarray:
+        """(dir, i, j, k) of each observation (meshgen numbering: node =
+        i*nny*nnz + j*nnz + k)."""
+        _, nny, nnz = self.node_shape
+        return np.stack([dirs, nodes // (nny * nnz), (nodes // nnz) % nny,
+                         nodes % nnz])
+
+
 @dataclasses.dataclass(frozen=True)
-class StencilForwardProblem:
+class StencilForwardProblem(_NodeGrid, _ImplicitForward):
     """θ -> u forward model on the theta stencil sweep.
 
     The matvec M K(λ, μ) (M u) + (I - M) u runs K(λ, μ)·u as ONE pass of
@@ -175,46 +273,25 @@ class StencilForwardProblem:
     d_mu: torch.Tensor   # raw unit-μ diagonal grid
     f0: torch.Tensor     # [3, nnx, nny, nnz] unit load grid
     node_shape: tuple
-    cg_tol: float
-    cg_maxiter: int
-    stats: SolveStats = dataclasses.field(default_factory=SolveStats)
 
-    @property
-    def dtype(self):
-        return self.f0.dtype
-
-    @property
-    def device(self):
-        return self.f0.device
-
-    def to_flat(self, u_grid: torch.Tensor) -> torch.Tensor:
-        """[..., 3, nnx, nny, nnz] -> [..., nnode, 3]."""
-        return u_grid.movedim(-4, -1).reshape(*u_grid.shape[:-4], -1, 3)
-
-    def matvec_fn(self, lam: torch.Tensor, mu: torch.Tensor
-                  ) -> Callable[[torch.Tensor], torch.Tensor]:
-        """Masked SPD action on chain-batched grids [B, 3, X, Y, Z]."""
+    def system(self, lam: torch.Tensor, mu: torch.Tensor) -> tuple:
+        """The masked action and diagonal on grids [B, 3, X, Y, Z]."""
         m = self.free_mask
 
         def matvec(u):
             return m * stencil.theta_apply(self.tables2, lam, mu, m * u) \
                 + (1.0 - m) * u
 
-        return matvec
-
-    def diagonal(self, lam: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
-        """Masked Jacobi diagonal per chain, [B, 3, X, Y, Z]."""
-        m = self.free_mask
         w = (lam.shape[0],) + (1,) * 4
-        return m * (lam.view(w) * self.d_lam + mu.view(w) * self.d_mu) \
-            + (1.0 - m)
+        return matvec, m * (lam.view(w) * self.d_lam
+                            + mu.view(w) * self.d_mu) + (1.0 - m)
 
-    def _pcg(self, lam, mu, rhs) -> cg_mod.CGResult:
-        return cg_mod.pcg(self.matvec_fn(lam, mu), rhs.contiguous(),
-                          diag=self.diagonal(lam, mu), tol=self.cg_tol,
-                          maxiter=self.cg_maxiter,
-                          ndof=int(3 * np.prod(self.node_shape)),
-                          batched=True)
+    def param_grads(self, params, w, Mu) -> tuple:
+        g_lam, g_mu = stencil.theta_coef_grads(self.tables2, w, Mu)
+        return -g_lam, -g_mu
+
+    def homogeneous(self, lam, mu, s) -> tuple:
+        return lam, mu, self.f0 * s.view(-1, 1, 1, 1, 1)
 
     def solve(self, lam: torch.Tensor, mu: torch.Tensor,
               f: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -222,78 +299,51 @@ class StencilForwardProblem:
         differentiable in λ, μ ([B], the problem's dtype) and f ([B, 3, X,
         Y, Z]; None: the unit load for every chain). Returns u [B, 3, X, Y,
         Z]."""
-        if f is None:
-            f = self.f0.expand(lam.shape[0], *self.f0.shape)
-        return _StencilSolve.apply(lam, mu, f, self)
-
-
-class _StencilSolve(torch.autograd.Function):
-    """u = A(λ, μ)⁻¹ (M f), A = M K(λ, μ) M + (I - M), chain-batched.
-
-    Backward: w = A⁻¹ (M ū) (the adjoint solve; A is symmetric), then
-    ∂/∂f = M w, ∂/∂λ = -⟨M w, K_λ(M u)⟩, ∂/∂μ = -⟨M w, K_μ(M u)⟩ per
-    chain. u vanishes on the fixed DOFs whatever θ is, so masking the
-    cotangent changes no gradient. Both solves record their iterations and
-    convergence in the problem's SolveStats.
-    """
-
-    @staticmethod
-    def forward(ctx, lam, mu, f, prob):
-        with span("forward.solve"):
-            res = prob._pcg(lam, mu, prob.free_mask * f)
-        prob.stats.record("forward", res)
-        ctx.save_for_backward(lam, mu, res.u)
-        ctx.prob = prob
-        return res.u
-
-    @staticmethod
-    def backward(ctx, ct):
-        lam, mu, u = ctx.saved_tensors
-        prob = ctx.prob
-        m = prob.free_mask
-        with span("forward.adjoint"):
-            res = prob._pcg(lam, mu, m * ct)
-        prob.stats.record("adjoint", res)
-        w = m * res.u
-        g_lam = g_mu = None
-        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            g_lam, g_mu = stencil.theta_coef_grads(prob.tables2, w, m * u)
-            g_lam, g_mu = -g_lam, -g_mu
-        return g_lam, g_mu, (w if ctx.needs_input_grad[2] else None), None
+        return self._solve(f, lam, mu)
 
 
 @dataclasses.dataclass(frozen=True)
-class ForwardProblem:
+class ForwardProblem(_ImplicitForward):
     """θ -> u forward model on the general gather/scatter operator, for any
     mesh: the geometry (conn, dN, detJw, masks) of op0 is fixed and the
     per-element D_e varies. solve(D_e [B, E, 6, 6], f [B, nnode, 3]) is
-    implicitly differentiable in D_e and f."""
+    implicitly differentiable in D_e and f: per element ∂/∂D_e = -Σ_g detJ
+    w_g ε(M w)_g ε(M u)_gᵀ, the derivative of -⟨M w, K(D)(M u)⟩."""
 
     op0: StiffnessOperator  # geometry carrier; its D is replaced per solve
     f0: torch.Tensor  # [nnode, 3] unit load vector
-    cg_tol: float
-    cg_maxiter: int
-    stats: SolveStats = dataclasses.field(default_factory=SolveStats)
-
-    @property
-    def dtype(self):
-        return self.op0.dtype
-
-    @property
-    def device(self):
-        return self.op0.device
 
     @property
     def nelem(self) -> int:
         return self.op0.conn.shape[0]
 
-    def operator_with(self, D_e: torch.Tensor) -> StiffnessOperator:
-        return self.op0.with_D(D_e)
+    @property
+    def free_mask(self) -> torch.Tensor:
+        return self.op0.free_mask
 
-    def _pcg(self, op, rhs) -> cg_mod.CGResult:
-        return cg_mod.pcg(op.apply, rhs, diag=op.diagonal(), tol=self.cg_tol,
-                          maxiter=self.cg_maxiter, ndof=3 * op.nnode,
-                          batched=True)
+    def to_flat(self, u: torch.Tensor) -> torch.Tensor:
+        return u
+
+    def obs_index(self, nodes: np.ndarray, dirs: np.ndarray) -> np.ndarray:
+        return np.stack([nodes, dirs])
+
+    def system(self, D_e: torch.Tensor) -> tuple:
+        """The masked action and diagonal of op0 with D_e [B, E, 6, 6] (it
+        shares op0's int32 indices)."""
+        op = self.op0.with_D(D_e)
+        return op.apply, op.diagonal()
+
+    def param_grads(self, params, w, Mu) -> tuple:
+        op = self.op0
+        eps_w = kernels.strain_at_gauss(op.dN, op.gather(w))
+        eps_u = kernels.strain_at_gauss(op.dN, op.gather(Mu))
+        return (-torch.einsum("...egi,...egj,eg->...eij", eps_w, eps_u,
+                              op.detJw),)
+
+    def homogeneous(self, lam, mu, s) -> tuple:
+        D = d_matrix_from_lame(lam, mu)  # [B, 6, 6]
+        return (D[:, None].expand(-1, self.nelem, 6, 6),
+                self.f0 * s.view(-1, 1, 1))
 
     def solve(self, D_e: torch.Tensor, f: Optional[torch.Tensor] = None
               ) -> torch.Tensor:
@@ -302,68 +352,19 @@ class ForwardProblem:
         [B, nnode, 3]. f None: the unit load."""
         if D_e.dim() == 3:
             return self.solve(D_e[None], None if f is None else f[None])[0]
-        if f is None:
-            f = self.f0.expand(D_e.shape[0], *self.f0.shape)
-        return _GeneralSolve.apply(D_e, f, self)
-
-
-class _GeneralSolve(torch.autograd.Function):
-    """u = A(D)⁻¹ (M f), A = M K(D) M + (I - M), chain-batched.
-
-    Backward: w = A⁻¹ (M ū) (the adjoint solve); ∂/∂f = M w and, per element,
-    ∂/∂D_e = -Σ_g detJ w_g ε(M w)_g ε(M u)_gᵀ, the derivative of -⟨M w,
-    K(D)(M u)⟩ = -Σ_e Σ_g detJ w_g ε(w)ᵀ D_e ε(u).
-    """
-
-    @staticmethod
-    def forward(ctx, D_e, f, prob):
-        op = prob.operator_with(D_e)
-        with span("forward.solve"):
-            res = prob._pcg(op, op.free_mask * f)
-        prob.stats.record("forward", res)
-        ctx.save_for_backward(D_e, res.u)
-        ctx.prob = prob
-        return res.u
-
-    @staticmethod
-    def backward(ctx, ct):
-        D_e, u = ctx.saved_tensors
-        prob = ctx.prob
-        op = prob.operator_with(D_e)
-        m = op.free_mask
-        with span("forward.adjoint"):
-            res = prob._pcg(op, m * ct)
-        prob.stats.record("adjoint", res)
-        w = m * res.u
-        g_D = None
-        if ctx.needs_input_grad[0]:
-            eps_w = kernels.strain_at_gauss(op.dN, op.gather(w))
-            eps_u = kernels.strain_at_gauss(op.dN, op.gather(m * u))
-            g_D = -torch.einsum("...egi,...egj,eg->...eij", eps_w, eps_u,
-                                op.detJw)
-        return g_D, (w if ctx.needs_input_grad[1] else None), None
+        return self._solve(f, D_e)
 
 
 @dataclasses.dataclass(frozen=True)
-class StructuredFieldForwardProblem:
+class StructuredFieldForwardProblem(_NodeGrid, _ImplicitForward):
     """θ -> u forward model with per-element Lamé fields on the structured
     operator (fem/structured.py): a heterogeneous material on a structured
     HEX8 grid, which the stencil forward cannot take. solve(λ_e, μ_e, f) is
-    implicitly differentiable in the fields and f."""
+    implicitly differentiable in the fields and f: per element ∂/∂λ_e =
+    -⟨(M w)_e, ke_λ (M u)_e⟩ and ∂/∂μ_e the same with ke_μ."""
 
     op0: structured.StructuredOperator  # geometry; lam_e, mu_e replaced
     f0: torch.Tensor  # [3, nnx, nny, nnz] unit load grid
-    cg_tol: float
-    cg_maxiter: int
-    stats: SolveStats = dataclasses.field(default_factory=SolveStats)
-
-    @property
-    def dtype(self):
-        return self.op0.dtype
-
-    @property
-    def device(self):
-        return self.op0.device
 
     @property
     def node_shape(self):
@@ -373,18 +374,25 @@ class StructuredFieldForwardProblem:
     def nelems(self):
         return self.op0.nelems
 
-    def to_flat(self, u_grid: torch.Tensor) -> torch.Tensor:
-        """[..., 3, nnx, nny, nnz] -> [..., nnode, 3]."""
-        return u_grid.movedim(-4, -1).reshape(*u_grid.shape[:-4], -1, 3)
+    @property
+    def free_mask(self) -> torch.Tensor:
+        return self.op0.free_mask
 
-    def operator_with(self, lam_e, mu_e) -> structured.StructuredOperator:
-        return dataclasses.replace(self.op0, lam_e=lam_e, mu_e=mu_e)
+    def system(self, lam_e: torch.Tensor, mu_e: torch.Tensor) -> tuple:
+        """The masked action and diagonal with the fields [B, nx, ny, nz]."""
+        op = dataclasses.replace(self.op0, lam_e=lam_e, mu_e=mu_e)
+        return op.apply, op.diagonal()
 
-    def _pcg(self, op, rhs) -> cg_mod.CGResult:
-        return cg_mod.pcg(op.apply, rhs, diag=op.diagonal(), tol=self.cg_tol,
-                          maxiter=self.cg_maxiter,
-                          ndof=int(3 * np.prod(self.node_shape)),
-                          batched=True)
+    def param_grads(self, params, w, Mu) -> tuple:
+        f2 = self.op0.unit_products(Mu)  # [B, 2, 24, nx, ny, nz]
+        w_e = self.op0.gather_elements(w)  # [B, 24, nx, ny, nz]
+        return -(w_e * f2[:, 0]).sum(dim=1), -(w_e * f2[:, 1]).sum(dim=1)
+
+    def homogeneous(self, lam, mu, s) -> tuple:
+        shape = (lam.shape[0], *self.nelems)
+        return (lam.view(-1, 1, 1, 1).expand(shape),
+                mu.view(-1, 1, 1, 1).expand(shape),
+                self.f0 * s.view(-1, 1, 1, 1, 1))
 
     def solve(self, lam_e: torch.Tensor, mu_e: torch.Tensor,
               f: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -395,43 +403,7 @@ class StructuredFieldForwardProblem:
         if lam_e.dim() == 3:
             return self.solve(lam_e[None], mu_e[None],
                               None if f is None else f[None])[0]
-        if f is None:
-            f = self.f0.expand(lam_e.shape[0], *self.f0.shape)
-        return _FieldSolve.apply(lam_e, mu_e, f, self)
-
-
-class _FieldSolve(torch.autograd.Function):
-    """u = A(λ_e, μ_e)⁻¹ (M f), chain-batched. Backward: w = A⁻¹ (M ū); ∂/∂f
-    = M w; per element ∂/∂λ_e = -⟨(M w)_e, ke_λ (M u)_e⟩ and ∂/∂μ_e the
-    same with ke_μ."""
-
-    @staticmethod
-    def forward(ctx, lam_e, mu_e, f, prob):
-        op = prob.operator_with(lam_e, mu_e)
-        with span("forward.solve"):
-            res = prob._pcg(op, (op.free_mask * f).contiguous())
-        prob.stats.record("forward", res)
-        ctx.save_for_backward(lam_e, mu_e, res.u)
-        ctx.prob = prob
-        return res.u
-
-    @staticmethod
-    def backward(ctx, ct):
-        lam_e, mu_e, u = ctx.saved_tensors
-        prob = ctx.prob
-        op = prob.operator_with(lam_e, mu_e)
-        m = op.free_mask
-        with span("forward.adjoint"):
-            res = prob._pcg(op, (m * ct).contiguous())
-        prob.stats.record("adjoint", res)
-        w = m * res.u
-        g_lam = g_mu = None
-        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            f2 = op.unit_products(m * u)  # [B, 2, 24, nx, ny, nz]
-            w_e = op.gather_elements(w)  # [B, 24, nx, ny, nz]
-            g_lam = -(w_e * f2[:, 0]).sum(dim=1)
-            g_mu = -(w_e * f2[:, 1]).sum(dim=1)
-        return g_lam, g_mu, (w if ctx.needs_input_grad[2] else None), None
+        return self._solve(f, lam_e, mu_e)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -450,7 +422,7 @@ class ShardedStencilForwardProblem:
         what the reference's slab_theta_apply computes, on the kernel of
         csrc/theta_sweep.cu on the card;
       * the gradient comes from an adjoint solve with the same operator,
-        as _StencilSolve's: with w the masked adjoint, ∂/∂s = ⟨w, f0⟩ and
+        as _ImplicitSolve's: with w the masked adjoint, ∂/∂s = ⟨w, f0⟩ and
         ∂/∂λ = -⟨w, K_λ(M u)⟩, ∂/∂μ = -⟨w, K_μ(M u)⟩, each slab's share
         over its own nodes with the haloed u, summed over the domain (the
         reference's psum); the prior is added once.
@@ -767,17 +739,7 @@ def solve_theta(fwd, theta: torch.Tensor) -> torch.Tensor:
     lam, mu = lame_from_E_nu(torch.exp(theta[:, 0]), theta[:, 1])
     lam, mu = lam.to(fwd.dtype), mu.to(fwd.dtype)
     s = torch.exp(theta[:, 2]).to(fwd.dtype)
-    B = theta.shape[0]
-    if isinstance(fwd, StencilForwardProblem):
-        return fwd.solve(lam, mu, fwd.f0 * s.view(B, 1, 1, 1, 1))
-    if isinstance(fwd, StructuredFieldForwardProblem):
-        shape = (B, *fwd.nelems)
-        return fwd.solve(lam.view(B, 1, 1, 1).expand(shape),
-                         mu.view(B, 1, 1, 1).expand(shape),
-                         fwd.f0 * s.view(B, 1, 1, 1, 1))
-    D = d_matrix_from_lame(lam, mu)  # [B, 6, 6]
-    return fwd.solve(D[:, None].expand(B, fwd.nelem, 6, 6),
-                     fwd.f0 * s.view(B, 1, 1))
+    return fwd.solve(*fwd.homogeneous(lam, mu, s))
 
 
 def displacement_fn(fwd, nelem: int) -> Callable[[torch.Tensor],
@@ -785,11 +747,10 @@ def displacement_fn(fwd, nelem: int) -> Callable[[torch.Tensor],
     """θ = (log E, ν, log load scale) -> u [nnode, 3]; θ of shape [B, 3]
     gives u [B, nnode, 3]. Serves the three forward types; nelem is kept
     for the reference's signature (the general forward reads its own)."""
-    to_flat = getattr(fwd, "to_flat", lambda u: u)
 
     def u_of(theta):
         if theta.dim() == 1:
-            return to_flat(solve_theta(fwd, theta[None]))[0]
-        return to_flat(solve_theta(fwd, theta))
+            return fwd.to_flat(solve_theta(fwd, theta[None]))[0]
+        return fwd.to_flat(solve_theta(fwd, theta))
 
     return u_of

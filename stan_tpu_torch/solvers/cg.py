@@ -52,8 +52,8 @@ and those spent blocked in its host reads of the norms (``wait_ns``); their
 difference is the host's own time, dispatch included. ``reads`` counts
 those reads and ``frozen`` the iterations a replayed block ran after the
 stop. Iterations are counted, not spanned; a capture is "cg.capture".
-pcg_certified's float64 residuals are "certified.residual"; pcg_refined's
-float64 sweeps "certify.sweep" and its corrections "certify.inner".
+The float64 refinement loop under pcg_refined and pcg_certified runs its
+residual sweeps as "certify.sweep" and its corrections as "certify.inner".
 """
 
 from __future__ import annotations
@@ -139,6 +139,25 @@ def pcg(
     return res._replace(wall_ns=time.perf_counter_ns() - t0)
 
 
+def _setup(b, diag, tol, maxiter, ndof, batched=False):
+    """What every loop sets up: (the iteration cap, maxiter 0 meaning ndof,
+    which defaults to the size of b or of one chain's b; the inverse Jacobi
+    diagonal, 0 where diag is, or None; bounds: ||b|| -> (threshold,
+    blow-up), with ||b|| no smaller than b's dtype's tiny)."""
+    if maxiter == 0:
+        maxiter = int(ndof if ndof is not None
+                      else (b[0] if batched else b).numel())
+    inv_diag = None if diag is None else torch.where(
+        diag != 0, 1.0 / diag, torch.zeros_like(diag))
+    tiny = torch.finfo(b.dtype).tiny
+
+    def bounds(bnorm):
+        bnorm = max(bnorm, tiny)
+        return tol * bnorm, 1.0e8 * bnorm
+
+    return maxiter, inv_diag, bounds
+
+
 def _pcg_one(A, b, diag, tol, maxiter, ndof, x0, dot) -> CGResult:
     """pcg of one system; wait_ns set, wall_ns left to pcg."""
     if dot is None and b.device.type == "cuda":
@@ -148,10 +167,7 @@ def _pcg_one(A, b, diag, tol, maxiter, ndof, x0, dot) -> CGResult:
     if dot is None:
         def dot(u, v):
             return torch.sum(u * v)
-    if maxiter == 0:
-        maxiter = int(ndof if ndof is not None else b.numel())
-    inv_diag = None if diag is None else torch.where(
-        diag != 0, 1.0 / diag, torch.zeros_like(diag))
+    maxiter, inv_diag, bounds = _setup(b, diag, tol, maxiter, ndof)
 
     def precond(r):
         return r if inv_diag is None else inv_diag * r
@@ -161,11 +177,8 @@ def _pcg_one(A, b, diag, tol, maxiter, ndof, x0, dot) -> CGResult:
     z = precond(r)
     p = z
     rz = dot(r, z)
-    tiny = torch.finfo(b.dtype).tiny
     read = _Reads(float)
-    bnorm = max(read(torch.sqrt(dot(b, b))), tiny)
-    threshold = tol * bnorm
-    blowup = 1.0e8 * bnorm
+    threshold, blowup = bounds(read(torch.sqrt(dot(b, b))))
 
     def bad(rnorm):
         return not math.isfinite(rnorm) or rnorm > blowup
@@ -316,10 +329,7 @@ def _pcg_blocks(A, b, diag, tol, maxiter, ndof, x0, blocks_for) -> CGResult:
     replayed until the device's test stops, each followed by one host read
     of its status. Returns a copy of x: the blocks' state serves the next
     call."""
-    if maxiter == 0:
-        maxiter = int(ndof if ndof is not None else b.numel())
-    inv_diag = None if diag is None else torch.where(
-        diag != 0, 1.0 / diag, torch.zeros_like(diag))
+    maxiter, inv_diag, bounds = _setup(b, diag, tol, maxiter, ndof)
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - A(x)
     z = r if inv_diag is None else inv_diag * r
@@ -327,9 +337,7 @@ def _pcg_blocks(A, b, diag, tol, maxiter, ndof, x0, blocks_for) -> CGResult:
     read = _Reads(torch.Tensor.tolist)
     bnorm, rnorm = read(torch.stack([torch.sqrt(_dot(b, b)),
                                      torch.sqrt(_dot(r, r))]))
-    bnorm = max(bnorm, torch.finfo(b.dtype).tiny)
-    threshold = tol * bnorm
-    blowup = 1.0e8 * bnorm
+    threshold, blowup = bounds(bnorm)
     run = (rnorm > threshold and maxiter > 0 and math.isfinite(rnorm)
            and rnorm <= blowup)
     k = ran = 0  # iterations counted, and run by the device
@@ -362,10 +370,7 @@ def _pcg_batched(A, b, diag, tol, maxiter, ndof, x0, dot) -> CGResult:
     the unbatched one, on its own norms, read together once per
     iteration."""
     B = b.shape[0]
-    if maxiter == 0:
-        maxiter = int(ndof if ndof is not None else b[0].numel())
-    inv_diag = None if diag is None else torch.where(
-        diag != 0, 1.0 / diag, torch.zeros_like(diag))
+    maxiter, inv_diag, bounds = _setup(b, diag, tol, maxiter, ndof, True)
     wide = (B,) + (1,) * (b.dim() - 1)
 
     def precond(r):
@@ -380,12 +385,10 @@ def _pcg_batched(A, b, diag, tol, maxiter, ndof, x0, dot) -> CGResult:
     z = precond(r)
     p = z
     rz = dot(r, z)
-    tiny = torch.finfo(b.dtype).tiny
     read = _Reads(torch.Tensor.tolist)
     bnorm, rnorm = read(torch.stack([torch.sqrt(dot(b, b)),
                                      torch.sqrt(dot(r, r))]))
-    threshold = [tol * max(v, tiny) for v in bnorm]
-    blowup = [1.0e8 * max(v, tiny) for v in bnorm]
+    threshold, blowup = zip(*map(bounds, bnorm))
 
     def bad(c):
         return not math.isfinite(rnorm[c]) or rnorm[c] > blowup[c]
@@ -430,6 +433,55 @@ class RefinedResult(NamedTuple):
     inner_seconds: float = 0.0
 
 
+def _refine(inner, b64, A_hi, *, tol, floor, max_cycles, lo_dtype,
+            x0=None) -> RefinedResult:
+    """The float64 refinement loop of pcg_refined and pcg_certified.
+
+    Each cycle solves the correction A d = r in lo_dtype with
+    inner(r_lo, t), adds d to x in float64 and computes the true residual
+    r = b - A_hi(x) in float64 on b64's device; the loop stops when
+    ||r|| <= tol ||b||, after max_cycles corrections, or when a cycle does
+    not lower the residual (the low-precision correction floor), returning
+    that cycle's x. A cycle's tolerance is clip(0.3 tol / rel, floor,
+    3e-2): the early cycles contract by floor, and the one that can finish
+    the job goes no deeper than the remaining gap needs (each restart pays
+    for a new Krylov space). x0 None starts x at zero, whose residual is b
+    exactly: no sweep is run for it."""
+    bnorm = float(torch.linalg.vector_norm(b64))
+    if bnorm == 0.0:
+        return RefinedResult(torch.zeros_like(b64), 0, 0.0, 0, True)
+    sweep_s = inner_s = 0.0
+
+    def sweep(x):
+        nonlocal sweep_s
+        t0 = time.perf_counter()
+        with span("certify.sweep"):
+            r = b64 - A_hi(x)
+            rel = float(torch.linalg.vector_norm(r)) / bnorm
+        sweep_s += time.perf_counter() - t0
+        return r, rel
+
+    if x0 is None:
+        x, r, rel = torch.zeros_like(b64), b64, 1.0
+    else:
+        x = x0.to(b64)
+        r, rel = sweep(x)
+    prev_rel = math.inf
+    cycles = iters = 0
+    while rel > tol and cycles < max_cycles and rel < prev_rel:
+        t = min(max(0.3 * tol / rel, floor), 3.0e-2)
+        t0 = time.perf_counter()
+        with span("certify.inner"):
+            res = inner(r.to(lo_dtype), t)
+            iters += res.iters
+            cycles += 1
+            x = x + res.u.to(x)
+        inner_s += time.perf_counter() - t0
+        prev_rel = rel
+        r, rel = sweep(x)
+    return RefinedResult(x, cycles, rel, iters, rel <= tol, sweep_s, inner_s)
+
+
 def pcg_refined(
     A,
     b_hi: torch.Tensor,
@@ -437,7 +489,6 @@ def pcg_refined(
     *,
     diag=None,
     tol: float = 1.0e-6,
-    inner_tol: Optional[float] = None,
     maxiter: int = 0,
     ndof: Optional[int] = None,
     max_cycles: int = 6,
@@ -446,14 +497,11 @@ def pcg_refined(
     inner_solve=None,
 ) -> RefinedResult:
     """Mixed-precision iterative refinement: low-precision CG corrections
-    under a float64 true-residual outer loop.
-
-    Each cycle computes r = b - A_hi(x) in float64, solves A d = r with the
-    low-precision operator and adds d to x in float64; it stops at the
-    target, or when a cycle no longer reduces the residual. The inner
-    tolerance of a cycle is clip(0.3 * tol / rel, 8 eps_lo, 3e-2), as in
-    the JAX package: each cycle retires about 1.5 decades and the product
-    of cycles reaches tol.
+    under a float64 true-residual outer loop (_refine), from the warm start
+    x0 (None: zero), with the cycle tolerance floored at 8 eps_lo: below
+    it the low-precision recurrence cannot reliably reach its own
+    threshold. As in the JAX package, each cycle retires about 1.5 decades
+    and the product of cycles reaches tol.
 
     x and r live in float64 on b_hi's device, and each correction comes
     back to it: with b_hi on the host, the loop is the reference's host
@@ -466,48 +514,11 @@ def pcg_refined(
     (it moves r_lo to its own device); x0: float64 warm start (e.g. the
     base solve's solution), moved to b_hi's device.
     """
-    b64 = b_hi.to(torch.float64)
-    bnorm = float(torch.linalg.vector_norm(b64))
-    if bnorm == 0.0:
-        return RefinedResult(torch.zeros_like(b64), 0, 0.0, 0, True)
-    # Below ~8 eps the low-precision recurrence cannot reliably reach its
-    # own threshold, so the schedule never asks for less.
-    floor = 8.0 * torch.finfo(lo_dtype).eps
     inner = inner_solve if inner_solve is not None else (
         lambda r, t: pcg(A, r, diag=diag, tol=t, maxiter=maxiter, ndof=ndof))
-
-    x = torch.zeros_like(b64) if x0 is None else x0.to(b64)
-    total_iters = 0
-    rel = math.inf
-    solves = 0
-    sweep_s = 0.0
-    inner_s = 0.0
-    for _ in range(max_cycles + 1):
-        t0 = time.perf_counter()
-        with span("certify.sweep"):
-            r = b64 - A_hi(x)
-            new_rel = float(torch.linalg.vector_norm(r)) / bnorm
-        sweep_s += time.perf_counter() - t0
-        if new_rel <= tol:
-            return RefinedResult(x, solves, new_rel, total_iters, True,
-                                 sweep_s, inner_s)
-        if new_rel >= rel:  # stalled at the low-precision floor
-            return RefinedResult(x, solves, new_rel, total_iters, False,
-                                 sweep_s, inner_s)
-        rel = new_rel
-        if solves == max_cycles:
-            break
-        t = inner_tol if inner_tol is not None else min(
-            max(0.3 * tol / new_rel, floor), 3.0e-2)
-        t0 = time.perf_counter()
-        with span("certify.inner"):
-            res = inner(r.to(lo_dtype), t)
-            total_iters += res.iters
-            solves += 1
-            x = x + res.u.to(x)
-        inner_s += time.perf_counter() - t0
-    return RefinedResult(x, solves, rel, total_iters, rel <= tol,
-                         sweep_s, inner_s)
+    return _refine(inner, b_hi.to(torch.float64), A_hi, tol=tol,
+                   floor=8.0 * torch.finfo(lo_dtype).eps,
+                   max_cycles=max_cycles, lo_dtype=lo_dtype, x0=x0)
 
 
 class CertifiedResult(NamedTuple):
@@ -534,27 +545,19 @@ def pcg_certified(
     measure: bool = False,
 ) -> CertifiedResult:
     """Certified solve from zero: restarted low-precision CG cycles under a
-    float64 true-residual loop, the JAX package's schedule.
-
-    x starts at 0, so the first residual is b exactly and needs no sweep.
-    Each cycle solves the correction A d = r with pcg to its cycle
-    tolerance, adds d to x in float64 and computes the true residual
-    r = b - hi_apply(x) in float64; the loop stops when ||r|| <= tol ||b||,
-    after max_cycles cycles, or when a cycle does not lower the residual
-    (the low-precision correction floor), returning that cycle's x. The
-    cycle tolerance is clip(0.3 tol / rel, inner_tol, 3e-2): the early
-    cycles contract by inner_tol, and the one that can finish the job goes
-    no deeper than the remaining gap needs (each restart pays for a new
-    Krylov space). inner_tol must sit above the low-precision correction
-    floor (about eps32 times the condition number, ~2e-3 at 1M DOF).
+    float64 true-residual loop (_refine), the JAX package's schedule, with
+    the cycle tolerance floored at inner_tol. inner_tol must sit above the
+    low-precision correction floor (about eps32 times the condition number,
+    ~2e-3 at 1M DOF).
 
     The reference keeps x as a (hi, lo) float32 pair and computes the
     residual with a compensated float32 sweep (fem/df32.py), because the
     TPU has no float64. The card has native float64: x and r are float64
     tensors on the device, and hi_apply is a float64 operator there (the
-    float64 StencilOperator's apply: the sweep's double instantiation). x,
-    r and rel stay on the device; the host reads rel once per cycle, on top
-    of the inner pcg's own per-iteration read.
+    float64 StencilOperator's apply: the sweep's double instantiation). x
+    and r stay on the device; the host reads rel once per cycle, besides
+    the inner pcg's own reads (on the card one per replayed block of BLOCK
+    iterations).
 
     A: fast low-precision operator; b64: right-hand side (float64, cast if
     not), on A's device; hi_apply: the float64 operator on the same
@@ -563,38 +566,20 @@ def pcg_certified(
     measure: run the solve twice and report the second run's wall time.
     """
     b64 = torch.as_tensor(b64, dtype=torch.float64, device=diag.device)
-    bnorm = float(torch.linalg.vector_norm(b64))
-    if bnorm == 0.0:
-        return CertifiedResult(torch.zeros_like(b64), 0, 0.0, 0, True)
-    if maxiter == 0:
-        maxiter = int(ndof if ndof is not None else b64.numel())
-    lo_dtype = diag.dtype
-
-    def run():
-        x = torch.zeros_like(b64)
-        r = b64  # x = 0: the first residual is b exactly
-        rel, prev_rel = 1.0, math.inf
-        cycles = iters = 0
-        while rel > tol and cycles < max_cycles and rel < prev_rel:
-            t = min(max(0.3 * tol / rel, inner_tol), 3.0e-2)
-            res = pcg(A, r.to(lo_dtype), diag=diag, tol=t, maxiter=maxiter,
-                      ndof=ndof)
-            x = x + res.u.to(torch.float64)
-            with span("certified.residual"):
-                r = b64 - hi_apply(x)
-                prev_rel, rel = rel, float(torch.linalg.vector_norm(r)) / bnorm
-            cycles += 1
-            iters += res.iters
-        return x, rel, cycles, iters
 
     def timed():
         t0 = time.perf_counter()
-        out = run()
+        out = _refine(
+            lambda r, t: pcg(A, r, diag=diag, tol=t, maxiter=maxiter,
+                             ndof=ndof),
+            b64, hi_apply, tol=tol, floor=inner_tol, max_cycles=max_cycles,
+            lo_dtype=diag.dtype)
         if b64.device.type == "cuda":
             torch.cuda.synchronize(b64.device)
         return out, time.perf_counter() - t0
 
-    (x, rel, cycles, iters), dt = timed()
+    res, dt = timed()
     if measure:
-        (x, rel, cycles, iters), dt = timed()
-    return CertifiedResult(x, cycles, rel, iters, rel <= tol, dt)
+        res, dt = timed()
+    return CertifiedResult(res.u, res.cycles, res.rel_residual,
+                           res.inner_iters, res.converged, dt)

@@ -156,11 +156,11 @@ def test_batched_pcg_on_the_theta_operator():
     b = (fwd.free_mask * fwd.f0 * torch.tensor([1.0, 1e3, 1e-2],
                                                dtype=F64)[:, None, None, None,
                                                           None])
-    res = cg.pcg(fwd.matvec_fn(lam, mu), b, diag=fwd.diagonal(lam, mu),
-                 tol=1e-12, batched=True)
+    matvec, diag = fwd.system(lam, mu)
+    res = cg.pcg(matvec, b, diag=diag, tol=1e-12, batched=True)
     for c in range(3):
-        one = cg.pcg(fwd.matvec_fn(lam[c:c + 1], mu[c:c + 1]), b[c:c + 1],
-                     diag=fwd.diagonal(lam[c:c + 1], mu[c:c + 1]), tol=1e-12)
+        matvec, diag = fwd.system(lam[c:c + 1], mu[c:c + 1])
+        one = cg.pcg(matvec, b[c:c + 1], diag=diag, tol=1e-12)
         assert res.iters[c] == one.iters and res.converged[c]
         bnorm = float(torch.linalg.vector_norm(b[c]))
         assert abs(res.residual[c] - one.residual) <= 0.1 * 1e-12 * bnorm

@@ -250,3 +250,52 @@ def test_log_posterior_across_forwards_and_reference():
     np.testing.assert_allclose(out["general"][0], v_ref, rtol=1e-9)
     np.testing.assert_allclose(out["general"][1], g_ref, rtol=1e-7,
                                atol=1e-9 * np.abs(g_ref).max())
+
+
+def _load_problem(name):
+    """The homogeneous beam's calibration with infer_load on the stencil,
+    field or general forward (CG to 1e-12)."""
+    m = meshgen.hex_beam(3, 2, 2)
+    obs_nodes, obs_dirs, y = _observations(m)
+    kw = dict(dtype=F64, device="cpu", cg_tol=1e-12)
+    fwd = (forward.build_structured_field_forward(m, **kw) if name == "field"
+           else forward.build_forward(m, prefer_stencil=name == "stencil",
+                                      **kw))
+    return calibrate.CalibrationProblem(
+        fwd=fwd, obs_idx=np.stack([obs_nodes, obs_dirs], axis=1),
+        y=torch.as_tensor(y), sigma_obs=1e-4, mu_logE=np.log(210000.0),
+        infer_load=True)
+
+
+LOAD_THETAS = np.array([[np.log(200000.0), 0.1, 0.15],
+                        [np.log(185000.0), -0.2, -0.1]])
+
+
+def _posterior_grad(prob):
+    th = torch.tensor(LOAD_THETAS, requires_grad=True)
+    prob.log_posterior(th).sum().backward()
+    return th.grad.numpy()
+
+
+@pytest.mark.parametrize("name", ["stencil", "field", "general"])
+def test_load_gradient_through_the_implicit_solve(name):
+    """With infer_load, the log posterior's gradient in log s (the load's
+    cotangent through the implicit solve) equals central differences and
+    is the same for the three forwards (rtol 1e-9)."""
+    prob = _load_problem(name)
+    assert type(prob.fwd).__name__ == {
+        "stencil": "StencilForwardProblem",
+        "field": "StructuredFieldForwardProblem",
+        "general": "ForwardProblem"}[name]
+    g = _posterior_grad(prob)[:, 2]
+    h = 1e-5
+    for c in range(len(LOAD_THETAS)):
+        up, down = LOAD_THETAS.copy(), LOAD_THETAS.copy()
+        up[c, 2] += h
+        down[c, 2] -= h
+        with torch.no_grad():
+            fd = (prob.log_posterior(torch.as_tensor(up))[c]
+                  - prob.log_posterior(torch.as_tensor(down))[c]) / (2 * h)
+        assert g[c] == pytest.approx(float(fd), rel=1e-6)
+    want = _posterior_grad(_load_problem("stencil"))[:, 2]
+    np.testing.assert_allclose(g, want, rtol=1e-9)

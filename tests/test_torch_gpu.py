@@ -894,9 +894,9 @@ def test_general_apply_refuses_bad_input_on_cuda():
 
 
 def test_general_forward_solves_share_the_int32_indices():
-    """Each solve of the general forward applies the operator that
-    operator_with builds for its D; all of them launch the kernels on the
-    one int32 conn and incidence, made at the first CUDA apply."""
+    """Each solve of the general forward applies the operator that its
+    system builds for its D; all of them launch the kernels on the one
+    int32 conn and incidence, made at the first CUDA apply."""
     import dataclasses
 
     from stan_tpu_torch.infer import forward
@@ -907,7 +907,7 @@ def test_general_forward_solves_share_the_int32_indices():
     fwd = forward.ForwardProblem(op0=dataclasses.replace(op, D=op.D[0]),
                                  f0=op.free_mask, cg_tol=1e-6,
                                  cg_maxiter=10)
-    a, b = fwd.operator_with(op.D), fwd.operator_with(2.0 * op.D)
+    a, b = (fwd.system(D)[0].__self__ for D in (op.D, 2.0 * op.D))
     got_a, got_b = a.apply(u), b.apply(u)
     torch.cuda.synchronize()
     assert a.index32()[0] is b.index32()[0] is fwd.op0.index32()[0]

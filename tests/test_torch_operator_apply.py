@@ -149,12 +149,13 @@ def test_launch_counts_hold_the_general_applies(monkeypatch):
 
 
 def test_operator_with_shares_the_int32_indices():
-    """The general forward's operator for each solve (operator_with)
-    carries the int32 copies of its geometry operator, made once."""
+    """The general forward's operator for each solve (its system's
+    matvec, the operator's bound apply) carries the int32 copies of its
+    geometry operator, made once."""
     op, _ = case("beam", "HEX8_G2", torch.float64, "cpu")
     fwd = forward.ForwardProblem(op0=op, f0=torch.zeros(op.nnode, 3),
                                  cg_tol=1e-8, cg_maxiter=10)
-    a, b = fwd.operator_with(op.D * 2), fwd.operator_with(op.D[None] * 3)
+    a, b = (fwd.system(D)[0].__self__ for D in (op.D * 2, op.D[None] * 3))
     conn32, inc32 = a.index32()
     assert b.index32()[0] is conn32 and b.index32()[1] is inc32
     assert op.index32()[0] is conn32

@@ -121,7 +121,7 @@ def test_certified_residual_once_per_cycle():
         res = _certified()
     spans = _spans(prof)
     assert res.converged and res.cycles >= 2
-    assert sum(n == "certified.residual" for n, _ in spans) == res.cycles
+    assert sum(n == "certify.sweep" for n, _ in spans) == res.cycles
     assert sum(n == "cg.pcg" for n, _ in spans) == res.cycles
 
 
