@@ -31,7 +31,9 @@ Gradients flow through each solve implicitly, as jax.lax.custom_linear_solve
 chain-batched PCG solve with the same SPD operator on the masked cotangent
 (an adjoint solve), not CG unrolled. The forwards differ only in what
 _ImplicitForward asks of them: their operator for a batch of parameters,
-the parameters' cotangents, and their layout.
+the parameters' cotangents, and their layout. On the card the forward and
+adjoint solves of a problem replay one captured CG loop (cg.pcg with
+params).
 Every solve records its iterations, convergence and host time in the
 problem's SolveStats, and runs in the span "forward.solve" or
 "forward.adjoint" (utils/timing.span: on the profiler's timeline while one
@@ -106,7 +108,9 @@ class SolveStats:
 
     ``*_calls`` counts the batched pcg calls, ``*_ns`` their host time and
     ``*_wait_ns`` the part of it blocked in the host reads of the norms
-    (CGResult.wall_ns, wait_ns); on a mesh they sum the rows' calls too. All
+    (CGResult.wall_ns, wait_ns), ``*_reads`` those reads and ``*_frozen``
+    the iterations a replayed block ran after the slowest chain's stop
+    (CGResult.reads, frozen); on a mesh they sum the rows' calls too. All
     stay integers, so SummedSolveStats sums them exactly."""
 
     forward_solves: int = 0
@@ -123,6 +127,10 @@ class SolveStats:
     adjoint_ns: int = 0
     forward_wait_ns: int = 0
     adjoint_wait_ns: int = 0
+    forward_reads: int = 0
+    adjoint_reads: int = 0
+    forward_frozen: int = 0
+    adjoint_frozen: int = 0
 
     def record(self, kind: str, res: cg_mod.CGResult) -> None:
         """Add one chain-batched pcg result under kind "forward" or
@@ -130,7 +138,8 @@ class SolveStats:
         add = {"solves": len(res.iters), "iters": int(res.iters.sum()),
                "unconverged": int((~res.converged).sum()),
                "loop_iters": int(res.iters.max()), "calls": 1,
-               "ns": res.wall_ns, "wait_ns": res.wait_ns}
+               "ns": res.wall_ns, "wait_ns": res.wait_ns,
+               "reads": res.reads, "frozen": res.frozen}
         for key, n in add.items():
             name = f"{kind}_{key}"
             setattr(self, name, getattr(self, name) + n)
@@ -165,7 +174,10 @@ class _ImplicitForward:
 
     - system(*params) -> (matvec, diag): the masked SPD action M K(p) (M u)
       + (I - M) u and its Jacobi diagonal for one chain batch of
-      parameters p;
+      parameters p. _pcg hands pcg the system and the parameters: on the
+      card it builds the matvec once on static copies of p and replays it
+      as a CUDA graph for every p of that layout (solvers/cg.py), so the
+      matvec reads p from device memory and never on the host;
     - param_grads(params, w, Mu): the cotangents of p, -⟨w, ∂K/∂p Mu⟩ per
       chain, from the masked adjoint w and the masked solution Mu;
     - homogeneous(lam, mu, s): solve's arguments for one material (λ, μ
@@ -191,8 +203,7 @@ class _ImplicitForward:
         return self.free_mask.numel()
 
     def _pcg(self, params, rhs) -> cg_mod.CGResult:
-        matvec, diag = self.system(*params)
-        return cg_mod.pcg(matvec, rhs, diag=diag, tol=self.cg_tol,
+        return cg_mod.pcg(self.system, rhs, params=params, tol=self.cg_tol,
                           maxiter=self.cg_maxiter, ndof=self.ndof,
                           batched=True)
 

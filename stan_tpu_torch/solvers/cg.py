@@ -34,6 +34,18 @@ while_loop does: the loop runs while any chain runs, and a chain that has
 stopped is frozen with torch.where and its counter stops, so each chain's
 iterations, residual and flags are those of its own solve.
 
+``pcg(system, b, params=p, batched=True)`` takes a problem's system in
+place of the operator: system(*p) -> (matvec, diag). On a CUDA device without
+``dot`` it runs the batched iteration as the same replayed blocks, with
+each chain's stopping test and freeze on the device and one host read of
+every chain's state a block; the result is the per-iteration batched
+loop's to the bit. The capture reads the parameters from static copies
+that each call refills, so one capture serves every parameter value of
+one problem (the object system is bound to) on parameters and vectors of
+the same shape, layout and dtype; the captures of a problem are kept
+while it lives, one for each such key. Elsewhere, or with ``dot``, the
+system is built and the loop reads every iteration.
+
 ``dot`` is the reduction, as ``axis_name`` is the reference's: a
 domain-sharded solve passes parallel.distributed.Slabs.dot with vectors
 sharded over a device mesh (parallel/sharded_stencil.py,
@@ -51,13 +63,15 @@ read, which waits for the device, so this holds the device work it queued)
 and those spent blocked in its host reads of the norms (``wait_ns``); their
 difference is the host's own time, dispatch included. ``reads`` counts
 those reads and ``frozen`` the iterations a replayed block ran after the
-stop. Iterations are counted, not spanned; a capture is "cg.capture".
+stop (the slowest chain's, in a batched solve). Iterations are counted,
+not spanned; a capture is "cg.capture".
 The float64 refinement loop under pcg_refined and pcg_certified runs its
 residual sweeps as "certify.sweep" and its corrections as "certify.inner".
 """
 
 from __future__ import annotations
 
+import functools
 import inspect
 import math
 import time
@@ -120,6 +134,7 @@ def pcg(
     x0: Optional[torch.Tensor] = None,
     batched: bool = False,
     dot: Optional[Callable] = None,
+    params: Optional[tuple] = None,
 ) -> CGResult:
     """Solve A u = b with Jacobi-preconditioned CG.
 
@@ -130,13 +145,25 @@ def pcg(
     systems (see the module docstring); ndof is then per chain and defaults
     to b[0].numel(). dot: (u, v) -> Σ u·v, a scalar, or per chain [B] when
     batched (default: torch sums over the tensor, or over each chain's
-    elements).
+    elements). params: A is then a system, A(*params) -> (matvec, diag),
+    and diag is not given (see the module docstring).
     """
     t0 = time.perf_counter_ns()
     with span("cg.pcg"):
-        res = (_pcg_batched if batched else _pcg_one)(A, b, diag, tol,
-                                                      maxiter, ndof, x0, dot)
+        if params is not None and batched and dot is None and _blocked(b):
+            res = _pcg_system(A, params, b, tol, maxiter, ndof, x0)
+        else:
+            if params is not None:
+                A, diag = A(*params)
+            res = (_pcg_batched if batched else _pcg_one)(
+                A, b, diag, tol, maxiter, ndof, x0, dot)
     return res._replace(wall_ns=time.perf_counter_ns() - t0)
+
+
+def _blocked(b) -> bool:
+    """Whether a system's batched loop runs in blocks on b's device: on a
+    CUDA device, where they are captured."""
+    return b.device.type == "cuda"
 
 
 def _setup(b, diag, tol, maxiter, ndof, batched=False):
@@ -254,16 +281,19 @@ class _Blocks:
             torch.where(run, torch.sqrt(_dot(r, r)), self.rnorm,
                         out=self.rnorm)
             self.iters.add_(run)
-            # _pcg_one's test in float64 on the float32 norm: above the
-            # threshold, finite and not past the blow-up, under the cap.
-            # rnorm <= blowup is false for NaN and inf (blowup is
-            # finite), so it holds the finiteness test too.
-            rnorm = self.rnorm.double()
-            torch.logical_and(rnorm > self.threshold, rnorm <= self.blowup,
-                              out=run)
-            run.logical_and_(self.iters < self.maxiter)
+            self.test()
         torch.stack([run.double(), self.iters.double(), self.rnorm.double()],
                     out=self.status)
+
+    def test(self) -> None:
+        """_pcg_one's test in float64 on the float32 norm, into run: above
+        the threshold, finite and not past the blow-up, under the cap.
+        rnorm <= blowup is false for NaN and inf (blowup is finite), so it
+        holds the finiteness test too."""
+        rnorm = self.rnorm.double()
+        torch.logical_and(rnorm > self.threshold, rnorm <= self.blowup,
+                          out=self.run)
+        self.run.logical_and_(self.iters < self.maxiter)
 
     def capture(self, A) -> "_Blocks":
         """Warm step up on a side stream, then record it as a CUDA graph.
@@ -300,6 +330,11 @@ class _Blocks:
 _last = None
 
 
+def _layout(t):
+    """What a capture's key holds of a tensor (or None)."""
+    return None if t is None else (t.shape, t.stride(), t.dtype, t.device)
+
+
 def _weak(A):
     """A reference to A that does not keep it alive, where A allows one."""
     try:
@@ -312,8 +347,7 @@ def _captured(A, *state) -> _Blocks:
     """Captured blocks for A on tensors like state (x, r, z, inv_diag):
     the last ones if they match, else captured now."""
     global _last
-    key = tuple(None if t is None else (t.shape, t.stride(), t.dtype,
-                                        t.device) for t in state)
+    key = tuple(map(_layout, state))
     # Bound methods compare equal when they bind the same object (by
     # identity) to the same function; functions when they are one.
     if _last is not None and _last[0] == key and _last[1]() == A:
@@ -365,6 +399,166 @@ def _pcg_blocks(A, b, diag, tol, maxiter, ndof, x0, blocks_for) -> CGResult:
                     wait_ns=read.ns, reads=read.n, frozen=ran - k)
 
 
+def _chain_dot(u, v):
+    """Σ u·v per chain, over each chain's elements in order: [B]."""
+    return torch.sum((u * v).reshape(u.shape[0], -1), dim=1)
+
+
+class _ChainBlocks(_Blocks):
+    """_pcg_batched's iteration (dot None) on static tensors, as _Blocks
+    runs _pcg_one's: rz, the norms, the counts, the run flags and the
+    bounds per chain ([B]), and a chain whose test fails is frozen with
+    torch.where there as in _pcg_batched, so a block run past the slowest
+    chain's stop changes nothing. The status is (run, count, norm) of
+    every chain, [3, B]."""
+
+    def __init__(self, x, r, z, inv_diag, k: int):
+        super().__init__(x, r, z, inv_diag, k)
+        B = r.shape[0]
+
+        def chains(dtype):
+            return torch.zeros(B, dtype=dtype, device=r.device)
+
+        self.rz, self.rnorm = chains(r.dtype), chains(r.dtype)
+        self.iters, self.run = chains(torch.int64), chains(torch.bool)
+        self.bounds = torch.zeros(2, B, dtype=torch.float64, device=r.device)
+        self.threshold, self.blowup = self.bounds
+        self.status = torch.zeros(3, B, dtype=torch.float64, device=r.device)
+
+    def step(self, A) -> None:
+        x, r, p, run = self.x, self.r, self.p, self.run
+        wide = (r.shape[0],) + (1,) * (r.dim() - 1)
+        wide_run = run.view(wide)
+        for _ in range(self.k):
+            # _pcg_batched's operations in its order, into the static
+            # tensors where it rebinds.
+            Ap = A(p)
+            alpha = (self.rz / _chain_dot(p, Ap)).view(wide)
+            torch.where(wide_run, x + alpha * p, x, out=x)
+            r_n = r - alpha * Ap
+            z = r_n if self.inv_diag is None else self.inv_diag * r_n
+            rz_n = _chain_dot(r_n, z)
+            torch.where(wide_run, z + (rz_n / self.rz).view(wide) * p, p,
+                        out=p)
+            torch.where(wide_run, r_n, r, out=r)
+            torch.where(run, rz_n, self.rz, out=self.rz)
+            # A frozen chain's r is unchanged, and so is its norm.
+            torch.sqrt(_chain_dot(r, r), out=self.rnorm)
+            self.iters.add_(run)
+            self.test()  # per chain
+        torch.stack([run.double(), self.iters.double(), self.rnorm.double()],
+                    out=self.status)
+
+
+def _pcg_chains(A, b, diag, tol, maxiter, ndof, x0, blocks_for) -> CGResult:
+    """_pcg_batched (dot None) in blocks: its set-up, with every chain's
+    ||b|| and first ||r|| read together, then the blocks of blocks_for(x,
+    r, z, inv_diag) -> (blocks, the matvec they step with) replayed until no
+    chain runs, each followed by one host read of its status. Returns a
+    copy of x, as _pcg_blocks does."""
+    B = b.shape[0]
+    maxiter, inv_diag, bounds = _setup(b, diag, tol, maxiter, ndof, True)
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b - A(x)
+    z = r if inv_diag is None else inv_diag * r
+    rz = _chain_dot(r, z)
+    read = _Reads(torch.Tensor.tolist)
+    norms = torch.stack([torch.sqrt(_chain_dot(b, b)),
+                         torch.sqrt(_chain_dot(r, r))])
+    bnorm, rnorm = read(norms)
+    threshold, blowup = zip(*map(bounds, bnorm))
+    go = [rnorm[c] > threshold[c] and maxiter > 0
+          and math.isfinite(rnorm[c]) and rnorm[c] <= blowup[c]
+          for c in range(B)]
+    k, ran = [0] * B, 0  # iterations counted, and run by the device
+    if any(go):
+        s, A = blocks_for(x, r, z, inv_diag)
+        for static, value in ((s.x, x), (s.r, r), (s.p, z), (s.rz, rz),
+                              (s.inv_diag, inv_diag), (s.rnorm, norms[1])):
+            if value is not None:
+                static.copy_(value)
+        s.iters.zero_()
+        s.maxiter.fill_(maxiter)
+        s.bounds.copy_(torch.tensor([threshold, blowup], dtype=torch.float64))
+        s.test()  # go, on the device
+        while any(go):
+            s.replay(A)
+            ran += s.k
+            go, k, rnorm = read(s.status)
+        k = [int(n) for n in k]
+        x = s.x.clone()
+    return CGResult(
+        u=x, iters=np.array(k), residual=np.array(rnorm),
+        converged=np.array([rnorm[c] <= threshold[c] for c in range(B)]),
+        diverged=np.array([not math.isfinite(rnorm[c])
+                           or rnorm[c] > blowup[c] for c in range(B)]),
+        wait_ns=read.ns, reads=read.n, frozen=ran - max(k))
+
+
+class _System(NamedTuple):
+    """One capture of a problem's batched loop: the static copies of the
+    parameters it reads, the matvec built on them (it keeps alive what the
+    graph reads) and the captured blocks."""
+
+    params: tuple
+    A: Callable
+    blocks: _ChainBlocks
+
+
+# The captures of each live problem: id(problem) -> (a weak reference to
+# it, whose callback drops the entry, {key: _System}).
+_systems = {}
+
+
+def _captures(system) -> dict:
+    """The captures kept for system's problem, the object it is bound to
+    (or system itself), for as long as that lives."""
+    owner = getattr(system, "__self__", system)
+    entry = _systems.get(id(owner))
+    if entry is None:
+        def drop(_, key=id(owner)):
+            _systems.pop(key, None)
+
+        entry = _systems[id(owner)] = (weakref.ref(owner, drop), {})
+    return entry[1]
+
+
+def _weakly_bound(system):
+    """system with the object it is bound to referenced weakly, so that the
+    matvec it builds for a capture does not keep its problem alive."""
+    if inspect.ismethod(system):
+        return functools.partial(system.__func__,
+                                 weakref.proxy(system.__self__))
+    return system
+
+
+def _pcg_system(system, params, b, tol, maxiter, ndof, x0) -> CGResult:
+    """The batched loop of system(*params) in replayed blocks: the call's
+    diagonal and first residual come from system(*params) run eagerly, its
+    parameters go into the static copies of the capture for their layout
+    (made now if there is none), and _pcg_chains replays it."""
+    with torch.no_grad():
+        A, diag = system(*params)
+        captures = _captures(system)
+
+        def blocks_for(*state):
+            key = (getattr(system, "__func__", None),
+                   *map(_layout, (*params, *state)))
+            got = captures.get(key)
+            if got is None:
+                static = tuple(p.clone() for p in params)
+                matvec = _weakly_bound(system)(*static)[0]
+                blocks = _ChainBlocks(*state, BLOCK)
+                if b.device.type == "cuda":
+                    blocks.capture(matvec)
+                got = captures[key] = _System(static, matvec, blocks)
+            for s, p in zip(got.params, params):
+                s.copy_(p)
+            return got.blocks, got.A
+
+        return _pcg_chains(A, b, diag, tol, maxiter, ndof, x0, blocks_for)
+
+
 def _pcg_batched(A, b, diag, tol, maxiter, ndof, x0, dot) -> CGResult:
     """pcg over a leading chain axis; the stopping test of every chain is
     the unbatched one, on its own norms, read together once per
@@ -377,8 +571,7 @@ def _pcg_batched(A, b, diag, tol, maxiter, ndof, x0, dot) -> CGResult:
         return r if inv_diag is None else inv_diag * r
 
     if dot is None:
-        def dot(u, v):  # per chain, over the chain's elements in order
-            return torch.sum((u * v).reshape(B, -1), dim=1)
+        dot = _chain_dot
 
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - A(x)

@@ -1,6 +1,8 @@
 """Port parity: Jacobi PCG and float64 refinement of stan_tpu_torch against
 stan_tpu.solvers.cg, in float64 on the CPU (iterations +-1, u to 1e-8)."""
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -242,3 +244,158 @@ def test_blocked_loop_equals_the_per_iteration_loop(case, k):
             "indefinite": (one.iters, False, True)}.get(
         case, (one.iters, True, False))
     assert (res.iters, res.converged, res.diverged) == want
+
+
+def _chain_cases(B):
+    """(A, b, diag, tol, maxiter, x0) of each case the chain-batched blocks
+    must end as the per-iteration batched loop does: B chains of A_c x =
+    d_c x - c_c (shift x + shift^T x) on a line of 120 points, applied
+    elementwise, with chains of very different conditioning (so they stop
+    in different blocks) and right-hand sides of very different sizes; the
+    last chain is the one a case sets apart."""
+    n = 120
+    s = torch.tensor([0.01, 0.3, 2.0, 0.05][:B], dtype=F64)[:, None]
+    d, c = (2.0 + s).expand(B, n).contiguous(), torch.ones(B, 1, dtype=F64)
+
+    def op(d, c):
+        def A(x):
+            left = torch.nn.functional.pad(x[:, :-1], (1, 0))
+            right = torch.nn.functional.pad(x[:, 1:], (0, 1))
+            return d * x - c * (left + right)
+        return A
+
+    rng = np.random.default_rng(11)
+    b = torch.as_tensor(rng.standard_normal((B, n))
+                        * np.array([1.0, 1e3, 1e-3, 1.0])[:B, None])
+    zero = b.clone()
+    zero[-1] = 0.0
+    # The last chain starts at its solution, within 1e-10 of ||b||.
+    K = np.diag(d[-1].numpy()) - np.eye(n, k=1) - np.eye(n, k=-1)
+    x0 = torch.zeros_like(b)
+    x0[-1] = torch.as_tensor(np.linalg.solve(K, b[-1].numpy()))
+    # The last chain indefinite (alternating +-1, no coupling): its first
+    # step divides by pAp = 0 and the guard stops it.
+    d_bad, c_bad = d.clone(), c.clone()
+    d_bad[-1] = torch.tensor([1.0, -1.0] * (n // 2), dtype=F64)
+    c_bad[-1] = 0.0
+    ones = torch.ones_like(b)
+    return {
+        "spread": (op(d, c), b, d, 1e-10, 0, None),
+        "zero_rhs": (op(d, c), zero, d, 1e-10, 0, None),
+        "met_at_start": (op(d, c), b, d, 1e-10, 0, x0),
+        "cap_mid_block": (op(d, c), b, d, 1e-14, 7, None),
+        "indefinite": (op(d_bad, c_bad), ones, None, 1e-10, 0, None),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_chain_cases(4)))
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("k", [1, 3, 16])
+def test_chain_blocks_equal_the_batched_loop(case, B, k):
+    """The CUDA path's chain-batched loop (k iterations a block, each
+    chain's stopping test and freeze on the device, one read a block), run
+    eagerly here, against the batched loop that reads every iteration: the
+    same per-chain counts, residuals and flags, u to the bit; fewer than k
+    iterations run past the slowest chain's stop, and one read a block
+    besides the read before the loop."""
+    A, b, diag, tol, maxiter, x0 = _chain_cases(B)[case]
+    one = cg._pcg_batched(A, b, diag, tol, maxiter, None, x0, None)
+    res = cg._pcg_chains(A, b, diag, tol, maxiter, None, x0,
+                         lambda *state: (cg._ChainBlocks(*state, k), A))
+    for name in ("iters", "residual", "converged", "diverged"):
+        np.testing.assert_array_equal(getattr(res, name), getattr(one, name))
+    assert torch.equal(_bits(res.u), _bits(one.u))
+    assert 0 <= res.frozen < k
+    assert res.reads <= -(-int(res.iters.max()) // k) + 1
+    assert one.reads == one.iters.max() + 1 and one.frozen == 0
+    last = {"zero_rhs": (0, True, False), "met_at_start": (0, True, False),
+            "cap_mid_block": (7, False, False)}.get(case)
+    if last is not None:
+        assert (res.iters[-1], res.converged[-1], res.diverged[-1]) == last
+    if case == "indefinite":
+        assert res.diverged[-1] and not res.converged[-1]
+        assert res.converged[:-1].all() and not res.diverged[:-1].any()
+    if case == "spread" and B == 4:
+        assert len({(n - 1) // cg.BLOCK for n in res.iters}) >= 3
+
+
+def _calibration(m):
+    from stan_tpu_torch.infer import calibrate, forward
+
+    fwd = forward.build_forward(m, dtype=torch.float32, device="cpu",
+                                cg_tol=1e-6)
+    u = forward.displacement_fn(fwd, m.nelem)(torch.tensor(
+        [np.log(190000.0), 0.28, 0.0])).numpy()
+    nodes = np.argsort(-np.linalg.norm(u, axis=1))[:8]
+    obs_nodes, obs_dirs = np.repeat(nodes, 3), np.tile([0, 1, 2], 8)
+    y = u[obs_nodes, obs_dirs] * (1.0 + 0.01 * np.random.default_rng(
+        5).standard_normal(24))
+    return obs_nodes, obs_dirs, y, 0.01 * float(np.abs(y).max())
+
+
+def _thetas(i):
+    return torch.tensor(np.array([np.log(190000.0), 0.28, 0.0])
+                        + np.random.default_rng(20 + i).normal(
+                            0.0, 0.1, (4, 3)), dtype=torch.float32)
+
+
+def _value_and_grad(logp, theta):
+    theta = theta.clone().requires_grad_(True)
+    v = logp(theta)
+    v.sum().backward()
+    return v.detach(), theta.grad
+
+
+def test_static_parameters_are_refilled_every_call(monkeypatch):
+    """The system path (the forward's system and parameters handed to pcg)
+    with its blocks run eagerly on the CPU: three value-and-gradient calls
+    at different θ on one StencilForwardProblem each equal the batched loop
+    that builds the operator per call, to the bit, forward and adjoint,
+    and the problem holds one capture, whose static parameters each call
+    refills, for as long as the problem lives; the sharded forward, which
+    passes dot, keeps the per-iteration loop."""
+    from stan_tpu_torch.infer import calibrate, forward
+    from stan_tpu_torch.parallel import distributed
+
+    m = meshgen.hex_beam(7, 3, 3)  # 8 node planes: 2 slabs of 4
+    obs = _calibration(m)
+    prob = calibrate.make_problem(m, *obs, dtype=torch.float32,
+                                  device="cpu", cg_tol=1e-6)
+    assert isinstance(prob.fwd, forward.StencilForwardProblem)
+    want = [_value_and_grad(prob.log_posterior, _thetas(i))
+            for i in range(3)]
+    monkeypatch.setattr(cg, "_blocked", lambda b: True)
+    before = prob.fwd.stats.as_dict()
+    for i in range(3):
+        v, g = _value_and_grad(prob.log_posterior, _thetas(i))
+        assert torch.equal(_bits(v), _bits(want[i][0]))
+        assert torch.equal(_bits(g), _bits(want[i][1]))
+        assert len(cg._captures(prob.fwd.system)) == 1
+    d = prob.fwd.stats.since(before)
+    assert d["forward_calls"] == d["adjoint_calls"] == 3
+    for kind in ("forward", "adjoint"):
+        assert d[f"{kind}_loop_iters"] > cg.BLOCK
+        assert d[f"{kind}_reads"] <= (d[f"{kind}_loop_iters"] // cg.BLOCK
+                                      + 2 * 3)
+        assert 0 <= d[f"{kind}_frozen"] < 3 * cg.BLOCK
+
+    def refuse(*a, **k):
+        raise AssertionError("the sharded forward reached the system path")
+
+    monkeypatch.setattr(cg, "_pcg_system", refuse)
+    monkeypatch.setattr(cg._ChainBlocks, "step", refuse)
+    mesh = distributed.device_mesh(2, 2, devices=["cpu"] * 4)
+    sharded = calibrate.make_sharded_problem(m, mesh, *obs,
+                                             dtype=torch.float32,
+                                             cg_tol=1e-6)
+    v, g = sharded.logp_grad_b()(_thetas(0))
+    assert torch.isfinite(v).all() and torch.isfinite(g).all()
+    st = sharded.fwd.stats
+    assert st.forward_reads == st.forward_loop_iters + 1
+    assert st.forward_frozen == 0
+    # The captures hold their problem weakly: dropping it drops them.
+    owner = id(prob.fwd)
+    assert owner in cg._systems
+    del prob
+    gc.collect()
+    assert owner not in cg._systems

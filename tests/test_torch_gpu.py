@@ -801,6 +801,177 @@ def test_pcg_with_dot_takes_the_eager_loop(monkeypatch):
     assert res.reads == res.iters + 2
 
 
+def _calib_thetas(B, seed):
+    rng = np.random.default_rng(seed)
+    return torch.tensor(np.array([np.log(190000.0), 0.28, 0.0])
+                        + rng.normal(0.0, 0.1, (B, 3)), dtype=torch.float32,
+                        device="cuda")
+
+
+@pytest.mark.parametrize("B", [16, 1])
+def test_system_graph_cg_equals_the_eager_batched_loop(B):
+    """The calibration's batched CG at its cells' shapes ([B, 3, 33, 33,
+    33], padded to [B, 3, 35, 35, 35] in each sweep) replayed as CUDA
+    graphs of BLOCK iterations against the batched loop that reads every
+    iteration, at two θ batches in turn on one capture: the same per-chain
+    counts, residuals and flags, u to the bit; the replays launch the eager
+    loop's sweeps plus one per frozen iteration."""
+    from stan_tpu_torch.infer import forward
+    from stan_tpu_torch.solvers import cg
+
+    _need_cuda()
+    fwd = forward.build_forward(meshgen.hex_beam(32, 32, 32), device="cuda",
+                                cg_tol=1e-6)
+    kernel = "theta_sweep_batched" if B > 1 else "theta_sweep"
+    kw = dict(tol=fwd.cg_tol, maxiter=fwd.cg_maxiter, ndof=fwd.ndof)
+    for seed in (1, 2):
+        theta = _calib_thetas(B, seed)
+        params = forward.lame_from_E_nu(torch.exp(theta[:, 0]),
+                                        0.5 * torch.sigmoid(theta[:, 1]))
+        b = (fwd.free_mask * fwd.f0 * torch.exp(theta[:, 2]).view(
+            -1, 1, 1, 1, 1)).contiguous()
+        matvec, diag = fwd.system(*params)
+        before = launches.counts[kernel]
+        eager = cg._pcg_batched(matvec, b, diag, fwd.cg_tol, fwd.cg_maxiter,
+                                fwd.ndof, None, None)
+        eager_launches = launches.counts[kernel] - before
+        cg.pcg(fwd.system, b, params=params, batched=True, **kw)
+        before = launches.counts[kernel]
+        res = cg.pcg(fwd.system, b, params=params, batched=True, **kw)
+        graph_launches = launches.counts[kernel] - before
+        assert eager.converged.all() and eager.iters.max() > cg.BLOCK
+        for name in ("iters", "residual", "converged", "diverged"):
+            np.testing.assert_array_equal(getattr(res, name),
+                                          getattr(eager, name))
+        assert torch.equal(res.u.view(torch.int32), eager.u.view(torch.int32))
+        assert 0 <= res.frozen < cg.BLOCK
+        assert res.reads <= -(-int(res.iters.max()) // cg.BLOCK) + 1
+        assert eager_launches == eager.iters.max() + 1
+        assert graph_launches == eager_launches + res.frozen
+    assert len(cg._captures(fwd.system)) == 1
+
+
+def _gradients(prob, thetas):
+    from stan_tpu_torch.infer import hmc
+
+    grad = hmc.guarded_logp_grad_b(prob.log_posterior)
+    return [grad(th) for th in thetas]
+
+
+def _calib_problem(m, dtype=torch.float32, **kw):
+    """The calibration posterior of m on the card, observed at 8 strongly
+    deflected nodes of its own solve at θ_true."""
+    from stan_tpu_torch.infer import calibrate, forward
+
+    fwd = forward.build_forward(m, dtype=torch.float64, device="cpu",
+                                cg_tol=1e-10, **kw)
+    u = forward.displacement_fn(fwd, m.nelem)(torch.tensor(
+        [np.log(190000.0), 0.28, 0.0], dtype=torch.float64)).numpy()
+    nodes = np.argsort(-np.linalg.norm(u, axis=1))[:8]
+    obs_nodes, obs_dirs = np.repeat(nodes, 3), np.tile([0, 1, 2], 8)
+    y = u[obs_nodes, obs_dirs] * (1.0 + 0.01 * np.random.default_rng(
+        5).standard_normal(24))
+    return calibrate.make_problem(m, obs_nodes, obs_dirs, y,
+                                  0.01 * float(np.abs(y).max()), dtype=dtype,
+                                  device="cuda", cg_tol=1e-6, **kw)
+
+
+def _eager_and_graph(monkeypatch, prob, thetas):
+    """The gradients at thetas from the batched loop that reads every
+    iteration, then from the replayed graphs, and the graphs' solve
+    counts."""
+    from stan_tpu_torch.solvers import cg
+
+    with monkeypatch.context() as mp:
+        mp.setattr(cg, "_blocked", lambda b: False)
+        eager = _gradients(prob, thetas)
+    before = prob.fwd.stats.as_dict()
+    return eager, _gradients(prob, thetas), prob.fwd.stats.since(before)
+
+
+def _same_bits(a, b):
+    view = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return torch.equal(a.view(view), b.view(view))
+
+
+@pytest.mark.parametrize("B", [16, 1])
+def test_hmc_gradient_through_the_graph_equals_the_eager_loop(B,
+                                                              monkeypatch):
+    """HMC's value and gradient (guarded_logp_grad_b over the posterior, its
+    forward and adjoint solves through _ImplicitSolve) at the 32^3
+    calibration on the replayed graphs, against the loop that reads every
+    iteration: equal to the bit at three θ batches; the forward and adjoint
+    solves read once a block."""
+    from stan_tpu_torch.solvers import cg
+
+    _need_cuda()
+    prob = _calib_problem(meshgen.hex_beam(32, 32, 32))
+    thetas = [_calib_thetas(B, seed) for seed in (3, 4, 5)]
+    eager, graph, d = _eager_and_graph(monkeypatch, prob, thetas)
+    for (v0, g0), (v1, g1) in zip(eager, graph):
+        assert torch.isfinite(v0).all()
+        assert _same_bits(v0, v1) and _same_bits(g0, g1)
+    for kind in ("forward", "adjoint"):
+        assert d[f"{kind}_calls"] == 3
+        assert d[f"{kind}_reads"] <= (d[f"{kind}_loop_iters"] // cg.BLOCK
+                                      + 2 * 3)
+
+
+def test_ten_gradients_capture_once(monkeypatch):
+    """Ten 16-chain value-and-gradient evaluations at different θ on one
+    posterior: one capture serves every forward and adjoint solve."""
+    from stan_tpu_torch.solvers import cg
+
+    _need_cuda()
+    prob = _calib_problem(meshgen.hex_beam(16, 8, 8))
+    capture, captures = cg._Blocks.capture, []
+
+    def counted(self, A):
+        captures.append(type(self))
+        return capture(self, A)
+
+    monkeypatch.setattr(cg._Blocks, "capture", counted)
+    before = prob.fwd.stats.as_dict()
+    out = _gradients(prob, [_calib_thetas(16, s) for s in range(10)])
+    assert all(torch.isfinite(v).all() for v, _ in out)
+    d = prob.fwd.stats.since(before)
+    assert d["forward_calls"] == d["adjoint_calls"] == 10
+    assert captures == [cg._ChainBlocks]
+    assert len(cg._captures(prob.fwd.system)) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["field", "general"])
+def test_field_and_general_forwards_on_the_graph(kind, dtype, monkeypatch):
+    """The field forward (a two-material beam) and the general forward
+    (prefer_stencil=False) on the replayed graphs against the loop that
+    reads every iteration, at a small size, 4 chains: value and gradient
+    to the bit at two θ batches, on one capture."""
+    from stan_tpu_torch.infer import forward
+    from stan_tpu_torch.solvers import cg
+
+    _need_cuda()
+    m = meshgen.hex_beam(8, 4, 4)
+    if kind == "field":
+        from stan_tpu_torch.core.model import Material
+
+        m.materials[2] = Material(id=2, name="soft", E=95000.0, poisson=0.3)
+        mat = np.asarray(m.elem_mat).reshape(8, 4, 4).copy()
+        mat[4:] = 2
+        m.elem_mat = mat.reshape(-1)
+        prob = _calib_problem(m, dtype=dtype)
+        assert isinstance(prob.fwd, forward.StructuredFieldForwardProblem)
+    else:
+        prob = _calib_problem(m, dtype=dtype, prefer_stencil=False)
+        assert isinstance(prob.fwd, forward.ForwardProblem)
+    thetas = [_calib_thetas(4, seed).to(dtype) for seed in (6, 7)]
+    eager, graph, _ = _eager_and_graph(monkeypatch, prob, thetas)
+    for (v0, g0), (v1, g1) in zip(eager, graph):
+        assert torch.isfinite(v0).all()
+        assert _same_bits(v0, v1) and _same_bits(g0, g1)
+    assert len(cg._captures(prob.fwd.system)) == 1
+
+
 # The general operator's kernels (csrc/general_apply.cu) against its plain
 # version: the same products summed in other orders (the kernel sums each
 # Gauss point's H, σ and force in registers and the Gauss points by
