@@ -281,12 +281,16 @@ def _cmd_calibrate(args) -> int:
 
             run = hmc_mod.run_hmc if inf.sampler == "hmc" else \
                 nuts_mod.run_nuts
+            # With the load fixed the posterior does not depend on log s:
+            # the samplers hold it at 0 (s = 1), and the diagnostics are
+            # those of the free coordinates.
             out = run(prob.log_posterior, theta0, inf.seed,
                       n_warmup=inf.warmup, n_samples=inf.samples,
-                      solve_stats=prob.fwd.stats, mesh=mesh)
+                      solve_stats=prob.fwd.stats, mesh=mesh, held=prob.held)
             samples = out.samples  # [chains, n, 3]
             accept = float(np.mean(out.accept_rate))
-            rhat, ess = np.max(out.rhat), np.min(out.ess)
+            free = ~np.asarray(prob.held)
+            rhat, ess = np.max(out.rhat[free]), np.min(out.ess[free])
         elif inf.sampler == "vi":
             from stan_tpu_torch.infer import vi as vi_mod
 
@@ -318,7 +322,8 @@ def _cmd_calibrate(args) -> int:
     print(f"   draws: {n_draws}  wall: {wall:.1f}s  samples/s: {sps:.1f}  "
           f"accept: {accept:.3f}")
     if rhat is not None:
-        print(f"   R-hat: {rhat:.4f} (max over params)  min ESS: {ess:.0f}")
+        print(f"   R-hat: {rhat:.4f} (max over free params)  min ESS: "
+              f"{ess:.0f}")
     print(f"   CG solves: {st['forward_solves']} forward "
           f"({st['forward_iters'] / max(st['forward_solves'], 1):.1f} "
           f"iterations each, {st['forward_unconverged']} unconverged), "

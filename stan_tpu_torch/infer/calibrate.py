@@ -67,6 +67,12 @@ class CalibrationProblem:
                        self.y.to(f.device))
             for f in (self.fwd, *self.row_fwds)}
 
+    @property
+    def held(self) -> tuple:
+        """The coordinates log_posterior does not depend on, for the
+        samplers' ``held=``: log s unless the load is inferred."""
+        return (False, False, not self.infer_load)
+
     def _at(self, device) -> tuple:
         """(forward, observation index, y) on `device`."""
         if device not in self._on:

@@ -12,7 +12,13 @@ Port of stan_tpu/infer/hmc.py:
   * warmup follows Stan's windowed scheme: a step-size-only init buffer,
     expanding diagonal-mass (Welford) windows, at whose close the mass
     matrix updates and dual averaging restarts at the current averaged
-    step, and a step-size-only terminal buffer.
+    step, and a step-size-only terminal buffer;
+  * a coordinate whose inverse mass is 0 is held (_momenta): its momentum
+    is 0, so θ never moves there and it adds nothing to the kinetic
+    energy. run_chains(held=) holds the coordinates a posterior does not
+    depend on (the calibration's log s with the load fixed), where a free
+    momentum would only drift: HMC would random-walk there and NUTS's
+    U-turn test would never fire.
 
 Randomness: every transition draws from its own torch.Generator on the
 state's device, seeded from (seed, stream, step index) alone. A run is
@@ -66,6 +72,17 @@ def _wide(flag, like):
     return flag.reshape(flag.shape + (1,) * (like.dim() - flag.dim()))
 
 
+def _momenta(gen: torch.Generator, theta, inv_mass):
+    """Momenta [C, D] ~ N(0, inv_mass^-1) from `gen`: one normal draw per
+    coordinate, as many and in the order they always were, then 0 on the
+    held coordinates (inverse mass 0), with no inf or NaN on the way."""
+    z = torch.randn(theta.shape, dtype=theta.dtype, device=theta.device,
+                    generator=gen)
+    free = inv_mass > 0
+    return torch.where(free, z * torch.sqrt(
+        1.0 / torch.where(free, inv_mass, 1.0)), 0.0)
+
+
 def _leapfrog(logp_grad_b, state: HMCState, p, step, inv_mass, n_steps):
     """Static-length leapfrog integrator, batched over chains.
 
@@ -81,10 +98,15 @@ def _leapfrog(logp_grad_b, state: HMCState, p, step, inv_mass, n_steps):
     return HMCState(theta, logp, grad), p
 
 
-def _log_accept(state, new, p0, p1, inv_mass):
-    ke0 = 0.5 * torch.sum(inv_mass * p0 ** 2, dim=-1)
-    ke1 = 0.5 * torch.sum(inv_mass * p1 ** 2, dim=-1)
-    la = (new.logp - ke1) - (state.logp - ke0)
+def _energy(logp, p, inv_mass):
+    """The negative Hamiltonian [C]: log density less kinetic energy."""
+    return logp - 0.5 * torch.sum(inv_mass * p ** 2, dim=-1)
+
+
+def _log_accept(energy0, energy1):
+    """ΔH's log Metropolis ratio energy1 - energy0 [C], -inf where it is not
+    finite: HMC's acceptance, NUTS's leaf weight and divergence test."""
+    la = energy1 - energy0
     return torch.where(torch.isfinite(la), la, torch.full_like(la, -math.inf))
 
 
@@ -99,12 +121,13 @@ def hmc_transition(logp_grad_b, gen: torch.Generator, state: HMCState, step,
     """
     theta = state.theta
     like = dict(dtype=theta.dtype, device=theta.device, generator=gen)
-    p0 = torch.randn(theta.shape, **like) * torch.sqrt(1.0 / inv_mass)
+    p0 = _momenta(gen, theta, inv_mass)
     jitter = 0.8 + 0.4 * torch.rand(state.logp.shape, **like)
     new, p1 = _leapfrog(logp_grad_b, state, p0, step * jitter, inv_mass,
                         n_steps)
-    accept_prob = torch.clamp(torch.exp(_log_accept(state, new, p0, p1,
-                                                    inv_mass)), max=1.0)
+    accept_prob = torch.clamp(torch.exp(_log_accept(
+        _energy(state.logp, p0, inv_mass), _energy(new.logp, p1, inv_mass))),
+        max=1.0)
     accept = torch.rand(state.logp.shape, **like) < accept_prob
     out = HMCState(*(torch.where(_wide(accept, a), a, b)
                      for a, b in zip(new, state)))
@@ -120,13 +143,13 @@ def _find_reasonable_step(logp_grad_b, gen: torch.Generator,
     settle. One momentum draw serves every trial, as in the reference
     (whose key is the same at every doubling)."""
     log_half = math.log(0.5)
-    theta = state.theta
-    p0 = torch.randn(theta.shape, dtype=theta.dtype, device=theta.device,
-                     generator=gen) * torch.sqrt(1.0 / inv_mass)
+    p0 = _momenta(gen, state.theta, inv_mass)
+
+    energy0 = _energy(state.logp, p0, inv_mass)
 
     def log_accept(step):
         new, p1 = _leapfrog(logp_grad_b, state, p0, step, inv_mass, 1)
-        return _log_accept(state, new, p0, p1, inv_mass)
+        return _log_accept(energy0, _energy(new.logp, p1, inv_mass))
 
     la = log_accept(step0)
     up = la > log_half  # double while accepting; else halve
@@ -249,6 +272,7 @@ def run_chains(
     solve_stats=None,
     mesh=None,
     chain_axis: str = "chains",
+    held=None,
 ) -> HMCResult:
     """Shared chunked, checkpointed loop for batched MCMC chains.
 
@@ -282,10 +306,17 @@ def run_chains(
     to its own sidecar, and a run with the same identity (kernel_id,
     n_warmup, chains, dim) resumes from it. ``solve_stats``: the forward
     model's SolveStats, whose counts over this run go into the result.
+
+    ``held``: a [D] bool, the coordinates the target does not depend on.
+    The warmup starts their inverse mass at 0 and keeps it there at every
+    window close, so the kernels hold them (_momenta) at theta0's values;
+    the inverse mass, checkpoints included, carries the zeros.
     """
     theta0 = torch.as_tensor(theta0)
     dev = theta0.device
     n_chains, dim = theta0.shape
+    held = torch.as_tensor(np.zeros(dim, bool) if held is None else held,
+                           dtype=torch.bool, device=dev)
     if mesh is not None:
         if dev != mesh.home:
             raise ValueError(f"theta0 lies on {dev}, the mesh's home (this "
@@ -303,7 +334,7 @@ def run_chains(
 
     def run_warmup():
         state = HMCState(theta0, *target(theta0))
-        inv_mass = torch.ones_like(theta0)
+        inv_mass = torch.where(held, 0.0, torch.ones_like(theta0))
         step0 = torch.full((n_chains,), init_step, dtype=theta0.dtype,
                            device=dev)
         step0 = _find_reasonable_step(
@@ -328,8 +359,9 @@ def run_chains(
                 # Welford resets, dual averaging restarts at the averaged
                 # step so later adaptation tunes against the new mass.
                 var = m2 / max(cnt - 1.0, 1.0)
-                inv_mass = ((cnt / (cnt + 5.0)) * var
-                            + 1.0e-3 * (5.0 / (cnt + 5.0)))
+                inv_mass = torch.where(
+                    held, 0.0, (cnt / (cnt + 5.0)) * var
+                    + 1.0e-3 * (5.0 / (cnt + 5.0)))
                 da = _dual_avg_init(torch.exp(da.log_step_avg))
                 mean = torch.zeros_like(mean)
                 m2 = torch.zeros_like(m2)
@@ -479,12 +511,14 @@ def run_hmc(
     solve_stats=None,
     mesh=None,
     chain_axis: str = "chains",
+    held=None,
 ) -> HMCResult:
     """Run batched HMC chains with windowed warmup on theta0's device.
 
     `logp_fn` is a chain-batched log density [C, D] -> [C]; `seed` fixes
     every draw. See ``run_chains`` for chunks, checkpoint/resume,
-    `solve_stats` and the chains' placement over `mesh`.
+    `solve_stats`, the chains' placement over `mesh` and the `held`
+    coordinates.
     """
     return run_chains(
         guarded_logp_grad_b(logp_fn), hmc_kernel(n_leapfrog), theta0, seed,
@@ -494,7 +528,7 @@ def run_hmc(
         # Not the reference's "hmc:leapfrog{n}": the generators differ, so a
         # JAX checkpoint must not resume here, nor a torch one there.
         kernel_id=f"torch-hmc:leapfrog{n_leapfrog}",
-        solve_stats=solve_stats, mesh=mesh, chain_axis=chain_axis,
+        solve_stats=solve_stats, mesh=mesh, chain_axis=chain_axis, held=held,
     )
 
 
@@ -507,7 +541,8 @@ def diagnostics(samples: np.ndarray):
 
     samples: [chains, n, D]. Split-chain potential scale reduction (Gelman
     et al.); ESS from FFT autocorrelations averaged over chains, summed in
-    Geyer's initial positive pairs.
+    Geyer's initial positive pairs. Both are NaN for a coordinate with no
+    variance (a held one): neither is defined there.
     """
     c, n, d = samples.shape
     half = n // 2
@@ -536,4 +571,5 @@ def diagnostics(samples: np.ndarray):
             s += 2 * pair
         tau[k] = s
     ess = (c * half) / tau
-    return rhat, ess
+    still = np.all(x == x[:1, :1], axis=(0, 1))
+    return np.where(still, np.nan, rhat), np.where(still, np.nan, ess)

@@ -335,6 +335,29 @@ def test_cli_calibrate_default_is_nuts(tmp_path, capsys, monkeypatch):
     assert st["forward_solves"] == st["adjoint_solves"] > 0
 
 
+def test_cli_calibrate_default_holds_the_load(tmp_path, capsys, monkeypatch):
+    """The default calibration, NUTS with the load fixed: log s is held, so
+    the load scale reads 1 exactly while (E, ν) move (6 warmup steps adapt
+    the step: with 2 every proposal diverges, held or not), and R-hat,
+    over (E, ν) alone, is a number."""
+    from stan_tpu_torch.infer import nuts
+
+    monkeypatch.setattr(nuts, "run_nuts", _short(nuts, "run_nuts",
+                                                 max_depth=3))
+    path, _ = _stdb(tmp_path, 3, 2, 2)
+    logp = tmp_path / "cal.jsonl"
+    assert cli.main(["calibrate", path, "--synthetic", "--chains", "2",
+                     "--warmup", "6", "--samples", "4", "--device", "cpu",
+                     "--log-json", str(logp)]) == 0
+    text = capsys.readouterr().out
+    assert "load_scale: median 1   90% CI [1, 1]" in text
+    assert float(text.split("accept: ")[1].split()[0]) > 0  # (E, ν) move
+    rhat = float(text.split("R-hat: ")[1].split()[0])
+    assert np.isfinite(rhat) and "(max over free params)" in text
+    rec = json.loads(open(logp).read().splitlines()[0])
+    assert rec["rhat"] == pytest.approx(rhat, abs=1e-4)
+
+
 def test_cli_calibrate_vi(tmp_path, capsys):
     path, _ = _stdb(tmp_path, 3, 2, 2)
     logp = tmp_path / "cal.jsonl"

@@ -189,3 +189,73 @@ def test_a_part_adds_to_the_open_phase_and_appends_no_record():
     assert rec["n"] == 3 and 0 <= rec["a_s"] <= rec["seconds"]
     assert "x_s" not in rec
     assert "a_s=" in timer.summary()
+
+
+def _nuts_run(n, C, stats):
+    """n NUTS transitions of C chains on a correlated Gaussian with a flat,
+    held third coordinate; returns (target calls, summed gradient
+    evaluations the transitions returned)."""
+    from stan_tpu_torch.infer import hmc, nuts
+
+    prec = torch.tensor([[1.0, 0.6, 0.0], [0.6, 1.0, 0.0], [0.0, 0.0, 0.0]],
+                        dtype=torch.float64)
+    calls = 0
+
+    def target(th):
+        nonlocal calls
+        calls += 1
+        g = -th @ prec
+        return 0.5 * torch.sum(th * g, dim=1), g
+
+    th = torch.as_tensor(np.random.default_rng(8).normal(size=(C, 3)))
+    state = hmc.HMCState(th, *target(th))
+    calls = 0
+    inv_mass = torch.tensor([[1.0, 1.0, 0.0]] * C, dtype=torch.float64)
+    step = torch.linspace(0.3, 1.1, C, dtype=torch.float64)
+    evals = 0.0
+    for k in range(n):
+        state, _, n_evals = nuts.nuts_transition(
+            target, torch.Generator().manual_seed(k), state, step, inv_mass,
+            5, stats)
+        evals += float(n_evals.sum())
+    return calls, evals
+
+
+def test_tree_stats_count_the_calls_and_the_leaves():
+    """TreeStats over 12 transitions of 4 chains: lockstep_leaves is the
+    target's calls, chain_leaves the gradient evaluations the transitions
+    returned, and every chain-transition stopped at a U-turn, a divergence
+    or max_depth, having built at least one doubling."""
+    from stan_tpu_torch.infer import nuts
+
+    stats = nuts.TreeStats()
+    calls, evals = _nuts_run(12, 4, stats)
+    d = stats.as_dict()
+    assert d["transitions"] == 12 and d["chain_transitions"] == 48
+    assert d["lockstep_leaves"] == calls
+    assert d["chain_leaves"] == evals
+    assert d["chain_leaves"] <= 4 * d["lockstep_leaves"]
+    assert 48 <= d["depth_sum"] <= 48 * 5
+    assert 0 <= d["at_max_depth"] + d["divergent"] <= 48
+    assert all(isinstance(v, int) for v in d.values())
+    assert stats.since(d) == dict.fromkeys(d, 0)
+
+
+def test_nuts_spans_open_once_a_transition_and_once_a_depth():
+    """Under the profiler: one nuts.transition per transition, and one
+    nuts.doubling per depth the batch built, inside it (one chain: its
+    doublings are its depth_sum)."""
+    from stan_tpu_torch.infer import nuts
+
+    stats = nuts.TreeStats()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _nuts_run(6, 1, stats)
+    spans = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+             for e in prof.profiler.kineto_results.events()
+             if e.name().startswith("nuts.")]
+    outer = [(s, e) for n, s, e in spans if n == "nuts.transition"]
+    inner = [(s, e) for n, s, e in spans if n == "nuts.doubling"]
+    assert len(outer) == stats.transitions == 6
+    assert len(inner) == stats.depth_sum
+    assert all(any(s0 <= s and e <= e0 for s0, e0 in outer)
+               for s, e in inner)
